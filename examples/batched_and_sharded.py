@@ -2,7 +2,7 @@
 
 Replaces the reference's thread-based multi-RHS scheduler
 (docs/src/literate/howto/multi_threading.jl + src/MultiThreading.jl) with
-the TPU-native path: `solve_batched` vmaps per-problem states with an
+the JAX path: `solve_batched` vmaps per-problem states with an
 active-convergence mask; on a device mesh the batch axis is sharded and the
 same program runs SPMD (run with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu

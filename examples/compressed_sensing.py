@@ -71,10 +71,7 @@ err_w = float(jnp.linalg.norm(x_w - x_true) / jnp.linalg.norm(x_true))
 print("FISTA-L1-wavelet (variable-density mask) rel. error:", err_w)
 assert err_w < 0.01
 
-# --- dense sensing matrices ride the fused dense PGM kernel -------------
-# (the whole batched FISTA solve in one TPU kernel call; see docs/tpu.md)
-from rls_tpu.kernels import solve_pgm_dense_fused  # noqa: E402
-
+# --- dense sensing matrices: batched fixed-iteration FISTA -------------
 rngd = np.random.default_rng(7)
 md, nd = 128, 256
 Ad = jnp.asarray(rngd.normal(size=(md, nd)) / np.sqrt(md), jnp.float32)
@@ -90,6 +87,6 @@ sd = rt.FISTA.create(
     rt.DenseOperator(Ad), reg=rt.L1Regularization(1e-4), iterations=1000,
     rho=0.95 / Ld, restart="gradient_mapping", track_residual=False,
 )
-Xd = solve_pgm_dense_fused(sd, Bd)
+Xd = rt.solve_batched_fast(sd, Bd)
 err_d = float(jnp.linalg.norm(Xd[:, 0] - xd) / jnp.linalg.norm(xd))
-print(f"dense CS (fused dense FISTA kernel): rel_err={err_d:.2e}")
+print(f"dense CS (batched FISTA): rel_err={err_d:.2e}")

@@ -5,7 +5,7 @@ right-hand sides: ``solve!(solver, B; scheduler=MultiThreadingState)``
 and the custom-``SpawnState`` recipe
 (/root/reference/src/MultiThreading.jl:19-43,
 docs/src/literate/howto/multi_threading.jl:45-67). `solve_batched`
-mirrors that seam TPU-natively: ``scheduler`` is any callable
+mirrors that seam: ``scheduler`` is any callable
 
     scheduler(solver, states, active0) -> final_states
 
@@ -14,8 +14,8 @@ where ``states`` is the vmap-stacked per-problem state pytree and
 `rls_tpu.masked_vmap_scheduler`, the default policy). Because solver
 states are pure pytrees and `step`/`done` pure functions, a scheduler
 can advance problems in any order or grouping — no thread pools needed;
-on TPU the scheduling question becomes "which problems share a compiled
-step" rather than "which core runs which loop".
+on an accelerator the scheduling question becomes "which problems share
+a compiled step" rather than "which core runs which loop".
 
 This example builds two custom policies and checks both reach the
 default policy's solution:

@@ -1,5 +1,5 @@
-"""Image deblurring with ADMM + TV (reference BASELINE config #3:
-"ADMM with TV regularization, CG inner solve, 256² convolution operator").
+"""Image deblurring with ADMM + TV: ADMM with TV regularization, CG inner
+solve, convolution operator.
 
 ADMM applies the prox separately from the transform: use
 reg = L1 on the gradient domain with reg_trafo = GradientOperator —
@@ -20,7 +20,7 @@ img[12:40, 20:52] = 1.0
 img[30:55, 8:24] = 0.5
 x_true = jnp.asarray(img.reshape(-1))
 
-# Gaussian blur via the MXU-direct convolution operator
+# Gaussian blur via the direct convolution operator
 k = 7
 ax = np.arange(k) - k // 2
 g = np.exp(-(ax**2) / (2 * 1.5**2))

@@ -1,12 +1,11 @@
-"""Device placement — the TPU analog of the reference's GPU-acceleration
+"""Device placement — the analog of the reference's GPU-acceleration
 howto (docs/src/literate/howto/gpu_acceleration.jl).
 
 In the reference, moving a solve to the GPU means passing a GPU array `b`;
 the state re-materializes with b's array type. Here the same seam exists:
 `solver.init(b)` builds the state with b's device/sharding, so placing `b`
 (and the operator payload) with `jax.device_put` moves the entire solve.
-The unrolled driver (`solve_unrolled`) additionally avoids control-flow
-primitives for restricted TPU runtimes.
+The same code runs on whatever device JAX's first device is.
 """
 
 import jax
@@ -27,26 +26,18 @@ solver = rt.FISTA.create(
     A, reg=rt.L1Regularization(1e-4), iterations=50, rel_tol=0.0
 )
 
-# jitted while-loop solve (full backends) …
-if dev.platform == "cpu":
-    x = jax.jit(rt.solve)(solver, b)
-else:
-    # … or the control-flow-free unrolled program (restricted TPU runtimes)
-    x = jax.jit(rt.solve_unrolled)(solver, b)
-
+# jitted while-loop solve
+x = jax.jit(rt.solve)(solver, b)
 print("device of solution:", list(x.devices())[0])
 print("rel. error:", float(jnp.linalg.norm(x - x_true) / jnp.linalg.norm(x_true)))
 
 # timing utility (BenchmarkTools analog)
-stats = rt.time_solver(
-    jax.jit(rt.solve_unrolled if dev.platform != "cpu" else rt.solve), solver, b
-)
+stats = rt.time_solver(jax.jit(rt.solve), solver, b)
 print(f"compile {stats['compile_s']:.2f}s, mean solve {stats['mean_s']*1e3:.2f} ms")
 
-# -- fused whole-solve Pallas kernels ---------------------------------------
-# For the flagship shapes (separable-conv TV, split-real-DFT L1, ADMM-TV)
-# the entire fixed-iteration solve runs as ONE kernel per problem;
-# solve_batched_fast auto-dispatches and falls back to the composed driver.
+# -- batched fixed-iteration solves ------------------------------------------
+# solve_batched_fast runs a whole batch of problems as one straight-line
+# XLA program (every problem runs the configured number of steps).
 g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
 kern = np.outer(g, g)
 kern /= kern.sum()
@@ -61,5 +52,6 @@ tv_solver = rt.FISTA.create(
 )
 imgs = jnp.asarray(rng.normal(size=(4, 32 * 32)).astype(np.float32))
 B = jax.vmap(sep.mv)(imgs).T
-X = jax.jit(lambda B_: rt.solve_batched_fast(tv_solver, B_))(B)
-print("fused batched FISTA-TV:", X.shape, "finite:", bool(jnp.isfinite(X).all()))
+X = rt.solve_batched_fast(tv_solver, B)
+print("batched FISTA-TV:", X.shape, "finite:", bool(jnp.isfinite(X).all()))
+assert X.shape == (32 * 32, 4) and bool(jnp.isfinite(X).all())

@@ -1,7 +1,7 @@
 """Row-action solving with Kaczmarz and its randomized variants
 (reference docs/src/literate/howto/efficient_kaczmarz.jl).
 
-The reference optimizes row access by transposed storage + SIMD; on TPU the
+The reference optimizes row access by transposed storage + SIMD; here the
 row recurrence runs as a `lax.scan` over dynamically gathered rows, and
 `time_solver` replaces BenchmarkTools.
 """
@@ -35,16 +35,15 @@ solver = rt.Kaczmarz.create(A, reg=rt.L2Regularization(lam_vec), iterations=20)
 x = rt.solve(solver, b)
 print("vector-λ rel. error:", float(jnp.linalg.norm(x - x_true) / jnp.linalg.norm(x_true)))
 
-# streamed whole-solve Pallas fast path: A streamed from HBM in row blocks
-# (no VMEM matrix limit), randomized order precomputed at construction so
-# the sweep runs on restricted TPU runtimes too
+# batched fixed-iteration solve with the randomized row order precomputed
+# at construction (a table lookup instead of in-loop sampling)
 solver = rt.Kaczmarz.create(
     A, reg=rt.L2Regularization(1e-6), iterations=20,
     randomized=True, sub_matrix_fraction=0.5, precompute_order=True,
 )
-X = rt.solve_kaczmarz_streamed(solver, b[:, None])
+X = rt.solve_batched_fast(solver, b[:, None])
 err = float(jnp.linalg.norm(X[:, 0] - x_true) / jnp.linalg.norm(x_true))
-print(f"streamed randomized: rel_err={err:.2e}")
+print(f"batched randomized: rel_err={err:.2e}")
 
 # sparse systems: PaddedCSROperator gives O(nnz_row) row actions (the
 # reference's CSC dot_with_matrix_row / kaczmarz_update! fast paths) —
@@ -63,27 +62,22 @@ x = rt.solve(solver, b_sp)
 print("padded-CSR sparse rel_err:",
       float(jnp.linalg.norm(x - x_true) / jnp.linalg.norm(x_true)))
 
-# ...and sparse storage rides the streamed fast path too: the driver
-# densifies only the VISITED rows per sweep chunk (bounded HBM), the
-# kernel sees identical row blocks
+# ...and sparse storage in the batched randomized mode
 solver = rt.Kaczmarz.create(
     rt.PaddedCSROperator.from_dense(A_sp), reg=rt.L2Regularization(1e-6),
     iterations=30, randomized=True, sub_matrix_fraction=0.5,
     precompute_order=True,
 )
-Xs = rt.solve_kaczmarz_streamed(solver, b_sp[:, None])
-print("padded-CSR streamed rel_err:",
+Xs = rt.solve_batched_fast(solver, b_sp[:, None])
+print("padded-CSR batched rel_err:",
       float(jnp.linalg.norm(Xs[:, 0] - x_true) / jnp.linalg.norm(x_true)))
 
 # greedy-randomized mode (residual-driven e_k-thresholded sampling,
-# reference Kaczmarz.jl:393-426) — the fused sweep kernel runs each
-# S-step sweep as ONE Pallas call (2.1x the scan path on chip)
+# reference Kaczmarz.jl:393-426), batched
 solver = rt.Kaczmarz.create(
     A, reg=rt.L2Regularization(1e-6), iterations=12,
     greedy_randomized=True, sub_matrix_fraction=0.25,
 )
-from rls_tpu.kernels import solve_kaczmarz_greedy  # noqa: E402
-
-Xg = solve_kaczmarz_greedy(solver, b[:, None])
-print("greedy fused rel_err:",
+Xg = rt.solve_batched_fast(solver, b[:, None])
+print("greedy batched rel_err:",
       float(jnp.linalg.norm(Xg[:, 0] - x_true) / jnp.linalg.norm(x_true)))

@@ -1,9 +1,9 @@
 """Multi-coil SENSE MRI reconstruction in split real/imaginary form —
 complex image, coil maps, and k-space all carried as f32, so the whole
-pipeline runs on TPU runtimes without FFT or complex support (docs/tpu.md).
+pipeline runs on runtimes without FFT or complex support.
 
-The measurement model is BASELINE config #4: `A = stack_c (M ∘ F ∘ C_c)`
-with the unitary 2-D DFT evaluated as MXU matmul sandwiches
+The measurement model is `A = stack_c (M ∘ F ∘ C_c)` with the unitary
+2-D DFT evaluated as real matmul sandwiches
 (`SenseDFT2RealOperator`). Complex-L1 regularization of the split vector
 is exactly `L21Regularization(λ, slices=2)` — the group ℓ2 over (re, im)
 pairs is the complex magnitude soft-threshold.

@@ -1,7 +1,7 @@
-"""rls_tpu — TPU-native regularized least-squares solver suite.
+"""rls_tpu — regularized least-squares solver suite in JAX.
 
-From-scratch JAX/XLA/Pallas framework with the capabilities of
-RegularizedLeastSquares.jl (reference mounted read-only at /root/reference).
+From-scratch JAX/XLA framework with the capabilities of
+RegularizedLeastSquares.jl.
 """
 
 from . import deprecated, ops, utils
@@ -58,19 +58,13 @@ from .models.solvers import (
     pcg,
     solve,
     solve_batched,
+    solve_batched_fast,
     solve_batched_unrolled,
     solve_trace,
     solve_unrolled,
     solve_with_callbacks,
     solver_convergence,
     solver_solution,
-)
-from .kernels import (
-    solve_batched_fast,
-    solve_cgnr_fused,
-    solve_kaczmarz_streamed,
-    solve_pdhg_fused,
-    solve_splitbregman_l1_tv_fused,
 )
 from .ops.jacobi_svd import jacobi_svd, jacobi_svdvals, svt_jacobi
 from .registry import (

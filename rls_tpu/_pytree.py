@@ -2,7 +2,7 @@
 
 The reference library (RegularizedLeastSquares.jl) models "solver = mutable
 config + mutable state" (e.g. /root/reference/src/FISTA.jl:3-27). The
-TPU-native translation is "solver = frozen pytree config, state = frozen
+JAX translation is "solver = frozen pytree config, state = frozen
 pytree of arrays", so that whole solvers can be passed through `jax.jit`,
 `jax.vmap` and `jax.lax.while_loop` as ordinary pytrees. Static (hashable,
 non-traced) fields are marked with ``static_field()`` and become part of the

@@ -3,9 +3,9 @@
 The reference's PnP how-to plugs a pre-trained network into
 PlugAndPlayRegularization (docs/src/literate/howto/plug-and-play.jl,
 src/Regularization/PlugAndPlayRegularization.jl:17-55). This module
-provides the TPU-native equivalent end to end: a 3-layer residual CNN
+provides the JAX equivalent end to end: a 3-layer residual CNN
 (`cnn_denoise`) in plain `lax.conv_general_dilated` calls — no framework
-dependency, f32, chip-runnable — plus `train_denoiser`, which actually
+dependency, f32, accelerator-runnable — plus `train_denoiser`, which actually
 trains it (noise2clean MSE on synthetic piecewise-constant images, optax
 Adam) so examples/tests exercise a *learned* prior rather than a
 hand-rolled smoother. A flax/haiku `apply` closure drops in identically.

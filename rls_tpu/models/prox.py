@@ -1,6 +1,6 @@
 """Proximal-map library.
 
-TPU-native re-implementations of the reference's proximal operators
+JAX re-implementations of the reference's proximal operators
 (/root/reference/src/proximalMaps/*.jl). All proxes are pure functions on
 flat arrays; elementwise ones fuse into the surrounding solver step under
 XLA, the TV prox is a fused dual FGP loop, and nuclear/LLR use batched
@@ -134,7 +134,7 @@ def prox_tv_fgp(x, lam, grad_op: GradientOperator, iterations: int, unroll=False
     """Fast Gradient Projection on the TV dual (Beck & Teboulle 2009),
     mirroring the reference's FGP loop (ProxTV.jl:89-125). The whole loop is
     jit-fused: each iteration is gradient-op matvecs + elementwise clamping +
-    momentum; on TPU this compiles to a single fused kernel sequence."""
+    momentum, which XLA fuses into a short kernel sequence."""
     rdt = _real_dtype(x.dtype)
     lam = jnp.asarray(lam, rdt)
     lam_safe = jnp.where(lam > 0, lam, 1.0)
@@ -154,9 +154,8 @@ def prox_tv_fgp(x, lam, grad_op: GradientOperator, iterations: int, unroll=False
 
     carry = (pq0, pq0, jnp.asarray(1.0, rdt))
     if unroll:
-        # python-unrolled loop: one straight-line fused XLA program, no
-        # control-flow primitives (needed on restricted TPU runtimes and
-        # faster for small fixed iteration counts)
+        # python-unrolled loop: one straight-line fused XLA program with
+        # no control-flow primitives
         for i in range(iterations):
             carry = body(i, carry)
         pq = carry[0]
@@ -219,7 +218,6 @@ class TVRegularization(ParameterizedRegularization):
     dims: Any = static_field(default=None)
     iterations_tv: int = static_field(default=10)
     unroll: bool = static_field(default=False)
-    backend: str = static_field(default="xla")  # "xla" | "pallas"
     pair_planes: bool = static_field(default=False)
 
     def __post_init__(self):
@@ -245,22 +243,6 @@ class TVRegularization(ParameterizedRegularization):
         if isinstance(self.dims, int) and not is_complex:
             img = x.reshape(self.shape)
             return prox_tv_1d_axis(img, lam, self.dims).reshape(x.shape)
-        if (
-            self.backend == "pallas"
-            and not is_complex
-            and len(self.shape) == 2
-            and tuple(sorted(self.dims)) == (0, 1)
-            # kernel live set ~7 planes (x, 4 duals, temps) must fit the
-            # 16 MiB scoped VMEM budget; larger images ride the XLA FGP,
-            # which tiles through HBM at any size
-            and 7 * self.shape[0] * self.shape[1] * 4 <= 14 * 1024 * 1024
-        ):
-            from ..kernels.tv_pallas import prox_tv2d_fgp_pallas
-
-            interpret = jax.default_backend() == "cpu"
-            return prox_tv2d_fgp_pallas(
-                x, lam, self.shape, self.iterations_tv, interpret=interpret
-            )
         return prox_tv_fgp(
             x, lam, self._grad_op(x.dtype), self.iterations_tv, self.unroll
         )
@@ -282,14 +264,10 @@ class TVRegularization(ParameterizedRegularization):
 
 def _use_jacobi(m, method: str) -> bool:
     """Jacobi SVT applies to REAL F32 input (the compensated final matmul
-    bit-splits f32; f64 runs XLA's SVD, which is accurate on f64-native
-    backends); "auto" additionally caps the minor dimension (the sweep
-    loop is unrolled n−1 steps per sweep, so compile time grows with
-    min(m, n)). Gate set from measured on-chip data
-    (tools/jacobi_compile_table.py → docs/tpu.md): accuracy holds at
-    ~1.3e-5 through n=128 and cold compile is 26 s / 73 s / 163 s at
-    n = 32/64/128 (cached thereafter) — 128 is the largest size whose
-    one-time compile cost stays tolerable."""
+    bit-splits f32; f64 runs XLA's SVD); "auto" additionally caps the
+    minor dimension at 128, because the sweep loop is unrolled n−1 steps
+    per sweep and compile time grows with min(m, n). Whether this gate
+    still pays against cuSOLVER's batched SVD is not measured."""
     if m.dtype != jnp.float32:
         return False
     if method == "jacobi":
@@ -298,11 +276,9 @@ def _use_jacobi(m, method: str) -> bool:
 
 
 def _svt(m, lam, method: str = "auto"):
-    """Batched singular-value soft threshold dispatch.
-
-    On bf16-matmul TPUs, XLA's SVD caps at ~2e-3 accuracy; the one-sided
-    Jacobi path (ops/jacobi_svd.py) is VPU-resident and holds ~1e-5, so it
-    is the default wherever it applies (real dtype, small minor dim).
+    """Batched singular-value soft threshold dispatch: the one-sided
+    Jacobi path (ops/jacobi_svd.py) wherever `_use_jacobi` applies (real
+    f32, small minor dim), XLA's SVD otherwise.
     """
     if _use_jacobi(m, method):
         from ..ops.jacobi_svd import svt_jacobi
@@ -392,7 +368,7 @@ class LLRRegularization(ParameterizedRegularization):
     """Locally-low-rank prox: blockwise SVT over image patches with optional
     random block shift and fully-overlapping mode (reference ProxLLR.jl).
 
-    TPU-first: all patches are gathered into one (L, prod(block), K) tensor
+    All patches are gathered into one (L, prod(block), K) tensor
     and thresholded with a single *batched* SVD — the reference's per-patch
     threaded loop becomes one batched kernel. The Ong/Lustig skip test
     (ProxLLR.jl:72-74) is subsumed: SVT itself zeroes blocks whose singular

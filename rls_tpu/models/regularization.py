@@ -1,6 +1,6 @@
 """Regularization framework: base types, decorator terms, λ-normalization.
 
-TPU-native redesign of the reference's regularization layer
+JAX redesign of the reference's regularization layer
 (/root/reference/src/Regularization/*.jl). Julia's multiple dispatch over a
 decorator type hierarchy becomes plain pytree-dataclass composition: every
 term is a frozen pytree with a pure functional ``prox(x, lam) -> x`` and

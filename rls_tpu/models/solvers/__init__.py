@@ -7,6 +7,7 @@ from .base import (
     solver_solution,
     solve,
     solve_batched,
+    solve_batched_fast,
     solve_batched_unrolled,
     solve_trace,
     solve_unrolled,
@@ -31,6 +32,7 @@ __all__ = [
     "solve_batched",
     "solve_unrolled",
     "solve_batched_unrolled",
+    "solve_batched_fast",
     "pcg",
     "solver_solution",
     "solver_convergence",

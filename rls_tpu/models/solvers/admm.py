@@ -63,8 +63,8 @@ class ADMM(LinearSolver):
     vary_rho: str = static_field(default="none")
     iterations: int = static_field(default=10)
     iterations_cg: int = static_field(default=10)
-    # python-unrolled masked inner CG (for TPU runtimes without
-    # lax.while_loop; see base.pcg)
+    # python-unrolled masked inner CG (no lax.while_loop inside the step;
+    # required by the unrolled drivers, see base.pcg)
     unroll_cg: bool = static_field(default=False)
     verbose: bool = static_field(default=False)
 

@@ -1,6 +1,6 @@
 """Solver protocol and drivers.
 
-TPU-native redesign of the reference's solver layer
+JAX redesign of the reference's solver layer
 (/root/reference/src/RegularizedLeastSquares.jl:21-131): Julia's
 "mutable solver + mutable state + iterator protocol" becomes
 
@@ -44,6 +44,7 @@ __all__ = [
     "solve_batched",
     "solve_unrolled",
     "solve_batched_unrolled",
+    "solve_batched_fast",
     "pcg",
     "tree_where",
     "kaczmarz_row_update",
@@ -184,8 +185,8 @@ def pcg(
 
     `unroll=True` replaces the `lax.while_loop` with a python-unrolled
     fixed-maxiter loop with MASKED updates (steps freeze once converged,
-    with a guarded denominator so frozen steps stay finite) — faster for
-    small maxiter on TPU and required inside the unrolled solve drivers."""
+    with a guarded denominator so frozen steps stay finite) — the
+    straight-line inner CG for the unrolled solve drivers."""
     P = precon if precon is not None else (lambda v: v)
     r0 = b - matvec(x0)
     z0 = P(r0)
@@ -313,11 +314,11 @@ def solve_unrolled(solver: LinearSolver, b, x0=None):
     """Fixed-iteration solve with a python-unrolled step loop — a single
     straight-line XLA program with no control-flow primitives.
 
-    Use cases: (a) fixed-iteration throughput benchmarking, (b) TPU runtimes
-    without `lax.while_loop` support, (c) small iteration counts where
-    unrolling lets XLA fuse across iterations. No early convergence exit —
-    runs exactly `solver.iterations` steps (the prox must also be
-    control-flow free, e.g. TVRegularization(unroll=True))."""
+    Use cases: (a) fixed-iteration throughput benchmarking, (b) small
+    iteration counts where unrolling lets XLA fuse across iterations. No
+    early convergence exit — runs exactly `solver.total_steps` steps (a
+    straight-line program also wants a control-flow-free prox, e.g.
+    TVRegularization(unroll=True))."""
     sr = _as_split_real(solver)
     if sr is not None:
         if x0 is None:
@@ -348,6 +349,22 @@ def solve_batched_unrolled(solver: LinearSolver, B, x0=None):
     else:
         fn = lambda col: solve_unrolled(solver, col, x0)
     return jax.vmap(fn)(B.T).T
+
+
+_solve_batched_unrolled_jit = jax.jit(solve_batched_unrolled)
+
+
+def solve_batched_fast(solver: LinearSolver, B):
+    """Batched fixed-iteration solve of the columns of ``B`` (m × K):
+    `solve_batched_unrolled` as one jitted straight-line XLA program.
+    Every problem runs exactly ``solver.total_steps`` steps (no early
+    exit), so the whole batch costs one dispatch. The solver is a traced
+    argument: solvers that differ only in array values share one
+    compilation per batch shape."""
+    sr = _as_split_real(solver)
+    if sr is not None:
+        return sr.assemble(_solve_batched_unrolled_jit(sr.inner, sr.embed_b(B)))
+    return _solve_batched_unrolled_jit(solver, jnp.asarray(B))
 
 
 class SolverRun:
@@ -409,7 +426,7 @@ def solve_with_callbacks(solver: LinearSolver, b, callbacks=None, x0=None):
 def masked_vmap_scheduler(solver: LinearSolver, states, active0):
     """Default `solve_batched` scheduling policy: one masked-vmap step of
     EVERY still-active problem per outer iteration, inside a jittable
-    `lax.while_loop` — the TPU-native replacement of the reference's
+    `lax.while_loop` — the JAX replacement of the reference's
     SequentialState/MultiThreadingState schedulers
     (/root/reference/src/MultiThreading.jl:52-78). Finished problems are
     frozen via masked updates.

@@ -173,10 +173,9 @@ def _cg_normal_reorth(AHA, lam, rhs, iterations: int):
     all of them (twice — "twice is enough") restores finite termination:
     ≤ n steps to the f32 attainable floor ~κ·ε. The basis is (K, n) with
     K = min(iterations, n) — two small matmuls per iteration, COMPENSATED
-    for real f32: on a bf16-input MXU a raw projection is only ~4e-3
-    accurate, which destroys exactly the orthogonality this basis exists
-    to restore (measured: the chip stalled at 0.10 with raw projections
-    where CPU-f32 reached 1e-5).
+    for real f32: where the matmul unit rounds its inputs below f32, a
+    raw projection loses exactly the orthogonality this basis exists to
+    restore.
     """
     import jax.lax as lax
 
@@ -196,7 +195,7 @@ def _cg_normal_reorth(AHA, lam, rhs, iterations: int):
 
     def vdot(a, b):
         # explicit elementwise+reduce: a vector dot may otherwise lower
-        # onto the bf16-input MXU on chip
+        # onto a matmul unit that rounds its inputs
         return jnp.sum(jnp.conj(a) * b).real
 
     z00 = vdot(rhs, rhs)
@@ -230,7 +229,7 @@ def _cg_normal_reorth(AHA, lam, rhs, iterations: int):
 
 def solve_cgnr_refined(solver: CGNR, b, rounds: int = 3):
     """CGNR with reorthogonalized inner CG + iterative refinement — f32
-    accuracy for ill-conditioned normal equations on a bf16-matmul chip.
+    accuracy for ill-conditioned normal equations.
 
     A single f32 CG run on cond(AᴴA) ≈ 4e4 stalls ~3e-2 from the
     regularized solution, while the f64 reference converges (finite
@@ -253,7 +252,7 @@ def solve_cgnr_refined(solver: CGNR, b, rounds: int = 3):
 
     The iterate is accumulated in double-single (hi/lo f32 pair, TwoSum)
     so the cross-round additions never round at f32 eps. Pure
-    fori_loop/matmul — runs on the chip runtime as-is.
+    fori_loop/matmul.
     """
     if solver.A is None:
         raise ValueError("solve_cgnr_refined requires solver.A")

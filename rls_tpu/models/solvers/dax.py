@@ -10,7 +10,7 @@ RegularizedLeastSquares.jl:195-196, but part of its API surface):
   * DaxConstrained — the same with a Lent–Censor scheme enforcing B x ≥ 0
     per inner sweep (B defaults to the identity).
 
-TPU mapping mirrors Kaczmarz: `lax.scan` over row updates with gathered
+The mapping mirrors Kaczmarz: `lax.scan` over row updates with gathered
 rows; the weighted sampling (CDF inversion, DAXKaczmarz.jl:157-165) becomes
 `jax.random.choice` with row-energy probabilities.
 """

@@ -2,16 +2,14 @@
 
 Behavioral port of /root/reference/src/Direct.jl:
   * DirectSolver — solves (AᴴA + λI)x = Aᴴb (reference uses `lu`,
-    Direct.jl:101-133). On bf16-matmul TPUs both the Gram build and a
-    blocked LU ride the MXU and cap at ~2e-3 accuracy, so for real-f32
-    inputs the solve is dispatched through the VPU-resident one-sided
-    Jacobi SVD instead (x = V·S/(S²+λ)·Uᴴb — identical to the
-    regularized normal solve in exact arithmetic) and holds ~1e-5;
-    `svd_method="lu"` forces the factorization path.
+    Direct.jl:101-133). For real-f32 inputs the solve is dispatched
+    through the one-sided Jacobi SVD (x = V·S/(S²+λ)·Uᴴb — identical to
+    the regularized normal solve in exact arithmetic), whose rotations
+    never touch a matmul unit; `svd_method="lu"` forces the
+    factorization path.
   * PseudoInverse — Tikhonov-filtered SVD pinv: x = V · diag(S/(S²+λ)) · Uᴴ b
     with the SVD precomputed at construction (Direct.jl:135-139,152-169),
-    same Jacobi dispatch (gate: models/prox._use_jacobi, measured in
-    tools/jacobi_compile_table.py → docs/tpu.md).
+    same Jacobi dispatch (gate: models/prox._use_jacobi).
 """
 
 from __future__ import annotations
@@ -51,7 +49,7 @@ def _split_l2(reg):
 
 def _thin_svd(Ad, method: str = "auto"):
     """Thin SVD with the same accuracy dispatch as the nuclear/LLR proxes:
-    one-sided Jacobi (f32-exact column rotations on the VPU) where it
+    one-sided Jacobi (f32-exact elementwise column rotations) where it
     applies, XLA's SVD otherwise. Handles m < n by factoring Aᵀ."""
     if _use_jacobi(Ad, method):
         from ...ops.jacobi_svd import jacobi_svd
@@ -117,8 +115,7 @@ class DirectSolver(LinearSolver):
 
     def step(self, state: DirectState) -> DirectState:
         if self.U is not None:
-            # Jacobi-SVD route: ≡ (AᴴA+λI)⁻¹Aᴴb in exact arithmetic,
-            # ~1e-5 on the bf16-MXU runtime (vs ~2e-3 for Gram+LU)
+            # Jacobi-SVD route: ≡ (AᴴA+λI)⁻¹Aᴴb in exact arithmetic
             x = _tikhonov_apply(self.U, self.S, self.Vh, state.lam, state.b)
         else:
             Ad = self.A.to_dense()

@@ -4,8 +4,7 @@ optional gradient restart.
 Behavioral port of /root/reference/src/FISTA.jl: the whole iteration
 (momentum, normal-op matvec, gradient step, prox, restart test, θ update)
 is a single pure `step` that XLA fuses into matvec + elementwise + two
-reductions — the flagship hot loop of the framework (BASELINE.json
-north-star config).
+reductions — the flagship hot loop of the framework.
 """
 
 from __future__ import annotations

@@ -8,13 +8,9 @@ the L2 term with ``εw = √λ`` (:303-317); vector-λ Tikhonov is handled by th
 standard-form transform ``Â = A·diag(1/√λ)`` with solution rescale
 (:378-391, :257-259).
 
-TPU mapping: the inherently sequential row recurrence runs as a `lax.scan`
-over the sweep's row indices with dynamically gathered rows — exact
-reference semantics (the correctness reference). The fast paths live in
-kernels/kaczmarz_pallas.py: a VMEM-resident per-sweep kernel
-(backend="pallas") and `solve_kaczmarz_streamed`, the whole multi-sweep
-solve with HBM-streamed row blocks (no matrix-size limit, split-real
-complex, precomputed randomized order).
+The inherently sequential row recurrence runs as a `lax.scan` over the
+sweep's row indices with dynamically gathered rows — exact reference
+semantics.
 """
 
 from __future__ import annotations
@@ -69,13 +65,11 @@ class Kaczmarz(LinearSolver):
     theta: Any = None
     perm: Any = None  # row visit order (arange, or shuffled at create)
     # (iterations, K) host-precomputed row order for the randomized mode —
-    # replaces the in-loop jax.random.choice so the sweep lowers on
-    # restricted TPU runtimes and the streamed Pallas kernel can pre-gather
-    # rows; energy-weighted sampling without replacement, like the
-    # reference's per-sweep sample! (Kaczmarz.jl:267-269)
+    # replaces the in-loop jax.random.choice with a table lookup;
+    # energy-weighted sampling without replacement, like the reference's
+    # per-sweep sample! (Kaczmarz.jl:267-269)
     precomputed_order: Any = None
     normalize_reg: Any = NoNormalization()
-    backend: str = static_field(default="xla")  # "xla" | "pallas"
     randomized: bool = static_field(default=False)
     sub_matrix_size: int = static_field(default=1)
     shuffle_rows: bool = static_field(default=False)
@@ -96,7 +90,6 @@ class Kaczmarz(LinearSolver):
         iterations: int = 10,
         greedy_randomized: bool = False,
         theta: Optional[float] = None,
-        backend: str = "xla",
         precompute_order: bool = False,
         **_,
     ):
@@ -104,9 +97,8 @@ class Kaczmarz(LinearSolver):
 
         ``precompute_order=True`` (randomized mode) samples every sweep's
         row set host-side at construction instead of in-loop with
-        jax.random — required for the streamed Pallas backend and for TPU
-        runtimes without gather-based categorical sampling; statistically
-        equivalent to the reference's per-sweep `sample!`."""
+        jax.random; statistically equivalent to the reference's per-sweep
+        `sample!`."""
         A_op = as_operator(A)
         regs = (
             list(reg)
@@ -219,7 +211,6 @@ class Kaczmarz(LinearSolver):
             perm=perm,
             precomputed_order=precomputed_order,
             normalize_reg=normalize_reg,
-            backend=backend,
             randomized=randomized,
             sub_matrix_size=sub_matrix_size,
             shuffle_rows=shuffle_rows,
@@ -297,37 +288,6 @@ class Kaczmarz(LinearSolver):
             ).astype(jnp.int32)
         else:
             idx = self.perm
-
-        from ...kernels.kaczmarz_pallas import fits_vmem
-
-        if (
-            self.backend == "pallas"
-            and not self.randomized
-            # the kernel casts A to f32: require BOTH x and A real (a
-            # complex A with real b would otherwise be silently truncated)
-            and not jnp.issubdtype(state.x.dtype, jnp.complexfloating)
-            and hasattr(self.A, "mat")
-            and not jnp.issubdtype(self.A.mat.dtype, jnp.complexfloating)
-            and fits_vmem(
-                self.A.out_size,
-                self.A.in_size,
-                itemsize=self.A.mat.dtype.itemsize,
-            )
-        ):
-            from ...kernels.kaczmarz_pallas import kaczmarz_sweep_pallas
-
-            interpret = jax.default_backend() == "cpu"
-            x, vl = kaczmarz_sweep_pallas(
-                self.A.mat,
-                state.x,
-                state.vl,
-                state.u,
-                state.denom,
-                state.eps_w,
-                idx,
-                interpret=interpret,
-            )
-            return replace(state, x=x, vl=vl, key=key)
 
         (x, vl), _ = lax.scan(
             lambda c, i: self._row_update(c, i, state.u, state.denom, state.eps_w),

@@ -62,8 +62,8 @@ class SplitBregman(LinearSolver):
     iterations: int = static_field(default=10)  # outer Bregman iterations
     iterations_inner: int = static_field(default=10)
     iterations_cg: int = static_field(default=10)
-    # python-unrolled masked inner CG (for TPU runtimes without
-    # lax.while_loop; see base.pcg)
+    # python-unrolled masked inner CG (no lax.while_loop inside the step;
+    # required by the unrolled drivers, see base.pcg)
     unroll_cg: bool = static_field(default=False)
     verbose: bool = static_field(default=False)
 

@@ -7,7 +7,7 @@ Condat 2013 ("A direct algorithm for 1D total variation denoising") with
 pointer-chasing while-loops; here the same state machine is expressed as a
 single flat `lax.while_loop` whose segment writes are masked vector stores,
 then `vmap`-ped across all lines of an image. Work per event is O(N) so the
-worst case is O(N²), but lines are processed in parallel on the VPU; the
+worst case is O(N²), but lines are processed in parallel; the
 multi-dimensional TV prox uses FGP instead (see prox.py), exactly like the
 reference.
 """

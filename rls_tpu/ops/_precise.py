@@ -1,21 +1,22 @@
-"""f32-accurate matmuls on bf16-input MXUs — shared helpers.
+"""f32-accurate matmuls where the matmul unit rounds its inputs — shared
+helpers.
 
-TPU MXUs accumulate in f32 but round matmul INPUTS to bfloat16, and some
-runtimes ignore ``precision=HIGHEST`` (measured ~4e-3 relative error). The
-fix is an exact hi/lo operand split onto the bf16 grid plus the three
-cross products; two hard-won implementation rules (see docs/tpu.md):
+Matrix units that round f32 matmul INPUTS to a shorter mantissa (bf16, or
+TF32 on GPU tensor cores at XLA's default precision) lose f32 accuracy in
+iterated solves. The compensation is an exact hi/lo operand split onto
+the bf16 grid plus the cross products; two implementation rules:
 
 1. the split must be done by INTEGER BIT MASKING — an f32→bf16→f32 cast
    round-trip is an identity to the XLA simplifier and gets elided,
    silently disabling the compensation;
-2. the three products are cheapest as ONE matmul with the constant side
+2. the three products run as ONE matmul with the constant side
    pre-stacked ``[hi hi lo]`` along the contraction dim and the runtime
-   side stacked ``[xh; xl; xh]`` — ~8× cheaper than three separate batched
-   matmuls (measured at 256², batch 64).
+   side stacked ``[xh; xl; xh]``.
 
-Used by SeparableConvOperator (conv_direct.py) and the split-real DFT /
-SENSE operators (dft_real.py), and inside the fused FISTA-TV Pallas kernel
-(kernels/fista_tv_fused.py).
+Used by SeparableConvOperator (conv_direct.py), the split-real DFT /
+SENSE operators (dft_real.py), compensated DenseOperator matvecs and the
+Jacobi SVD reconstruction. Whether this pays against
+``precision=HIGHEST`` on a given device is an open measurement.
 """
 
 from __future__ import annotations
@@ -25,12 +26,9 @@ from jax import lax
 
 __all__ = [
     "split_bf16",
-    "split3_bf16",
     "np_split_bf16",
     "stack_left",
     "stack_right",
-    "stack3_left",
-    "stack3_right",
     "mm_left",
     "mm_right",
     "mm_both",
@@ -42,20 +40,6 @@ def split_bf16(v):
     vi = lax.bitcast_convert_type(v, jnp.uint32)
     hi = lax.bitcast_convert_type(vi & jnp.uint32(0xFFFF0000), jnp.float32)
     return hi, v - hi
-
-
-def split3_bf16(v):
-    """Exact hi/mid/lo split of f32 onto the bf16 grid: hi and mid are
-    exactly bf16-representable, lo carries the last ~8 mantissa bits
-    (its own MXU bf16 rounding is then ~2⁻²⁴ of |v| — full f32). The
-    2-way split caps compensated products at ~2⁻¹⁶ relative (the lo
-    field itself only holds 8 of the remaining 16 bits); the 6-product
-    3-way scheme (see kernels/_fgp_common.make_split_dft3) reaches
-    ~2⁻²⁴ — what error-integrating solvers like SplitBregman need to
-    clear the 5e-5 parity margin."""
-    hi, r = split_bf16(v)
-    mid, lo = split_bf16(r)
-    return hi, mid, lo
 
 
 def np_split_bf16(m):
@@ -83,36 +67,6 @@ def stack_right(m):
     return np.vstack([hi, hi, lo])
 
 
-def _np_split3(m):
-    import numpy as np
-
-    hi, r = np_split_bf16(m)
-    mid, lo = np_split_bf16(r)
-    # pre-truncate lo to the bf16 grid so every factor operand is
-    # EXACTLY representable — the on-chip MXU math then equals the
-    # CPU f32 math bit-for-bit (dropping only the ~2⁻³² residue)
-    lo_t = (lo.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
-    return hi, mid, lo_t
-
-
-def stack3_left(m):
-    """(3n, n) ``[hi; mid; lo]`` 3-way stacking of a constant LEFT
-    factor (consumed by make_split_dft3: left-mult output stacking)."""
-    import numpy as np
-
-    hi, mid, lo = _np_split3(m)
-    return np.vstack([hi, mid, lo])
-
-
-def stack3_right(m):
-    """(n, 3n) ``[hi mid lo]`` 3-way stacking of a constant RIGHT
-    factor."""
-    import numpy as np
-
-    hi, mid, lo = _np_split3(m)
-    return np.hstack([hi, mid, lo])
-
-
 def mm_left(l_cat, x):
     """Compensated ``L @ x`` with L pre-stacked by stack_left."""
     xh, xl = split_bf16(x)
@@ -130,10 +84,8 @@ def mm_both(a, b):
     one stacked matmul carrying ALL FOUR products ah·bh + ah·bl + al·bh
     + al·bl. The 3-term form (dropping al·bl, ~2⁻¹⁶ relative per
     multiply) is fine inside self-correcting prox-gradient steps, but
-    long Krylov/momentum chains amplify it to ~1e-3 over ~40 iterations
-    (docs/tpu.md "4-term rule"; measured in the dense-PGM fused-vs-
-    composed parity and the SplitBregman sense128 parity config) — and
-    this path IS the composed reference, so it carries the full rule.
+    long Krylov/momentum chains amplify it to ~1e-3 over ~40 iterations,
+    so this path carries all four terms.
     Batch dims broadcast like jnp.matmul."""
     ah, al = split_bf16(a)
     bh, bl = split_bf16(b)

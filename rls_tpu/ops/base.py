@@ -1,6 +1,6 @@
 """Matrix-free linear operator protocol and core implementations.
 
-TPU-native counterpart of the reference's L0 operator layer
+JAX counterpart of the reference's L0 operator layer
 (LinearOperators.jl / LinearOperatorCollection.jl usage, see
 /root/reference/src/RegularizedLeastSquares.jl:14-16 and SURVEY.md §1 L0).
 Operators are frozen pytrees: array payloads (the dense matrix, FFT masks,
@@ -23,6 +23,7 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from .._pytree import pytree_dataclass, static_field
 
@@ -112,13 +113,13 @@ class LinearOperator:
 @pytree_dataclass
 class DenseOperator(LinearOperator):
     """Dense matrix operator. The workhorse for small/medium A; matvecs map
-    straight onto the MXU. Reference analog: plain ``Matrix`` system matrices.
+    straight onto the device's matmul units. Reference analog: plain ``Matrix`` system matrices.
 
-    ``compensated=True`` applies the stacked hi/lo bf16 compensation
-    (ops/_precise.mm_both) to every matvec — needed for f32-accurate
-    Krylov iterations on bf16-input MXUs (real f32 matrices only; ~3x the
-    matmul cost, exact-but-redundant on f32-native backends). Off by
-    default: row-action solvers and one-shot matvecs rarely need it.
+    The plain products are pinned to ``precision=HIGHEST``: at XLA's
+    default precision an H100 rounds f32 matmul inputs to TF32, which
+    puts dense CGNR ~5e-4 off its float64 solution. ``compensated=True``
+    instead applies the stacked hi/lo bf16 compensation
+    (ops/_precise.mm_both) to every matvec (real f32 matrices only).
     """
 
     mat: Any
@@ -144,7 +145,7 @@ class DenseOperator(LinearOperator):
             from ._precise import mm_both
 
             return mm_both(a, x[..., None])[..., 0]
-        return a @ x
+        return jnp.matmul(a, x, precision=lax.Precision.HIGHEST)
 
     def mv(self, x):
         return self._mm(self.mat, x)

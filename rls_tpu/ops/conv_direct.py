@@ -1,20 +1,17 @@
 """Direct (non-FFT) convolution operator via lax.conv_general_dilated.
 
 Complement to the FFT-based ConvolutionOperator (fourier.py) for small
-kernels and for TPU backends where an FFT is unavailable or slower than the
-MXU conv path. SAME zero padding; adjoint = correlation with the flipped
-conjugate kernel (exact for odd kernel sizes). The fused ``normal`` applies
-the precomputed autocorrelation kernel in one conv.
+kernels. SAME zero padding; adjoint = correlation with the flipped
+conjugate kernel (exact for odd kernel sizes).
 
-Reference analog: the image-deblurring convolution operator of
-BASELINE.json config #3.
+Reference analog: the image-deblurring convolution operators of the
+reference's examples.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -76,7 +73,7 @@ class DirectConvOperator(LinearOperator):
 
 
 # --------------------------------------------------------------------------
-# Separable (banded-matmul) convolution — the MXU-native path
+# Separable (banded-matmul) convolution
 # --------------------------------------------------------------------------
 
 
@@ -109,23 +106,24 @@ class SeparableConvOperator(LinearOperator):
     ``k = outer(taps_h, taps_w)``, evaluated as two banded matrix products
     ``Y = A_h X A_wᵀ``.
 
-    Rationale: a single-channel spatial conv cannot use the MXU (the
-    channel-contraction dim is 1), so ``lax.conv`` runs it on the VPU as
-    k² shifted adds — measured ~5.4 ms per normal-op application at 256²
-    batch 64 on v5e. The banded form turns each 1-D pass into a dense
-    (N×N)·(N×N) matmul that the MXU eats (~0.2 ms incl. bf16 hi/lo
-    compensation), and the fused ``normal`` applies the precomputed
-    Gram factors ``B = AᵀA`` (built in f64 on host) in a single pass:
-    ``AᴴA X = B_h X B_wᵀ`` — exactly the reference's fused-normal-operator
-    idea (docs/literate/howto/normal_operator.jl:37-60) in MXU form.
+    Rationale: a single-channel spatial conv has a contraction dim of 1,
+    so it cannot use a matrix unit; the banded form turns each 1-D pass
+    into a dense (N×N)·(N×N) matmul, and the fused ``normal`` applies the
+    precomputed Gram factors ``B = AᵀA`` (built in f64 on host) in a
+    single pass: ``AᴴA X = B_h X B_wᵀ`` — the reference's
+    fused-normal-operator idea (docs/literate/howto/normal_operator.jl:37-60)
+    in matmul form. The banded products do ~N/k times the arithmetic of a
+    k-tap stencil; which form is faster on a given device is an open
+    measurement.
 
     Semantically identical (to f32 roundoff) to ``DirectConvOperator`` with
     ``kernel=outer(taps_h, taps_w)``: SAME zero padding factorizes exactly
     into two zero-padded 1-D passes, boundaries included.
 
-    ``compensated=True`` (default) applies bf16 hi/lo error compensation on
-    MXU backends; CPU matmuls are already f32-exact so it is skipped there.
-    Real dtypes only (the compensation split has no complex bf16).
+    ``compensated=True`` (default) applies bf16 hi/lo error compensation
+    (ops/_precise.py) to every product, so the operator holds f32
+    accuracy where matmul inputs are rounded below f32. Real dtypes only
+    (the compensation split has no complex bf16).
     """
 
     ah: Any  # (H, H) banded column-pass factor
@@ -136,18 +134,12 @@ class SeparableConvOperator(LinearOperator):
     cat: Any  # dict: {"mv": (L, R), "rmv": (L, R), "normal": (L, R)}
     im_shape: tuple = static_field()
     compensated: bool = static_field(default=True)
-    # tap COUNTS only (static): tap VALUES live in the banded factors, so
-    # operators differing only in kernel values keep identical treedefs
-    # (jit-cache keys, vmap structure); taps_hw() re-extracts the values
-    taps_len: tuple = static_field(default=None)
 
     def __post_init__(self):
         object.__setattr__(self, "im_shape", tuple(self.im_shape))
 
     @classmethod
     def from_taps(cls, taps_h, taps_w, im_shape, dtype=jnp.float32, compensated=True):
-        import numpy as np
-
         h, w = im_shape
         a_h = _banded(h, taps_h)
         a_w = _banded(w, taps_w)
@@ -174,9 +166,6 @@ class SeparableConvOperator(LinearOperator):
             cat=cat,
             im_shape=(h, w),
             compensated=compensated,
-            taps_len=(
-                int(np.asarray(taps_h).size), int(np.asarray(taps_w).size)
-            ),
         )
 
     @classmethod
@@ -212,28 +201,11 @@ class SeparableConvOperator(LinearOperator):
     def dtype(self):
         return self.ah.dtype
 
-    def taps_hw(self):
-        """1-D taps re-extracted from the banded factors (host-side; the
-        fused kernels' VPU stencil path needs them as static floats, so
-        call this on a CONCRETE operator — close the solver over jit).
-        Band layout: ah[c, c + i - k//2] = taps[i] (see _banded)."""
-        import numpy as np
-
-        if self.taps_len is None:
-            raise ValueError("operator was built without tap metadata")
-        out = []
-        for mat, k in ((self.ah, self.taps_len[0]), (self.aw, self.taps_len[1])):
-            c = k // 2
-            row = np.asarray(mat)[c]
-            out.append(tuple(float(t) for t in row[:k]))
-        return tuple(out)
-
     def _comp(self):
         # depends only on the operator config (never the trace-time
-        # backend): an operator traced on CPU but executed on TPU must
-        # still compensate, and the CPU suite must exercise the exact
-        # program that runs on chip. On f32-native backends the
-        # compensated form is redundant but equally accurate.
+        # backend), so the CPU suite exercises the exact program that runs
+        # on the accelerator. Where matmuls are f32-exact the compensated
+        # form is redundant but equally accurate.
         return self.compensated and self.ah.dtype == jnp.float32
 
     def _sandwich(self, x, left, right_t, name):
@@ -259,38 +231,3 @@ class SeparableConvOperator(LinearOperator):
 
     def normal(self, x):
         return self._sandwich(x, self.bh, self.bw.T, "normal")
-
-    def _stencil_pass(self, img, taps, axis, adjoint):
-        n = img.shape[axis]
-        shape = (-1, 1) if axis == 0 else (1, -1)
-        idx = jnp.arange(n).reshape(shape)
-        r = len(taps) // 2
-        acc = None
-        for i, t in enumerate(taps):
-            s = i - r
-            if adjoint:
-                s = -s
-            if s == 0:
-                term = t * img
-            else:
-                mask = (idx < n - s) if s > 0 else (idx >= -s)
-                term = t * jnp.roll(img, -s, axis) * mask.astype(img.dtype)
-            acc = term if acc is None else acc + term
-        return acc
-
-    def rmv_stencil(self, y):
-        """EXACT f32 adjoint via shift-and-add stencil passes — no MXU
-        at all (pure VPU elementwise, exact on bf16-matmul runtimes).
-        The compensated `rmv` sandwich carries a ~2.5e-5 residual vs
-        f64; as the Aᴴb SEED of an error-integrating solve (ADMM/
-        SplitBregman x0hat) that residual is a systematic bias the CG
-        amplifies — the r5 parity diagnosis that held admm_tv_deblur256
-        at ~1e-4 after every in-kernel fix. O(k·n) per axis, so only
-        sensible for short taps; requires tap metadata
-        (`from_taps`/`from_kernel` constructors)."""
-        taps_h, taps_w = self.taps_hw()
-        img = self._stencil_pass(
-            y.reshape(self.im_shape), taps_h, 0, adjoint=True
-        )
-        img = self._stencil_pass(img, taps_w, 1, adjoint=True)
-        return img.reshape(y.shape)

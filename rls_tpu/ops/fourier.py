@@ -4,8 +4,7 @@ circular convolution (deblurring).
 Reference analogs: ``SamplingOp * DFTOp`` products from
 LinearOperatorCollection used in the reference's CS test problem
 (/root/reference/test/testSolvers.jl:67-125) and FFT-based normal-operator
-optimization (`docs/src/literate/howto/normal_operator.jl`). TPU-first
-design: the *normal* operators are fused into a single
+optimization (`docs/src/literate/howto/normal_operator.jl`). Design: the *normal* operators are fused into a single
 FFT → diagonal multiply → IFFT pipeline (no gather/scatter), which is the
 dominant cost of every proximal-gradient iteration and maps onto XLA's
 batched FFT + fused elementwise.

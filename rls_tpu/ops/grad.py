@@ -1,6 +1,6 @@
 """Finite-difference gradient operator (regTrafo for TV-via-ADMM).
 
-TPU-native analog of LinearOperatorCollection's ``GradientOp`` used by the
+JAX analog of LinearOperatorCollection's ``GradientOp`` used by the
 reference for TV (/root/reference/src/proximalMaps/ProxTV.jl:41-46 builds
 ``∇ = GradientOp(Tc; shape, dims)``; /root/reference/src/ADMM.jl:74 documents
 ``regTrafo=GradientOp`` for TV penalties).
@@ -10,7 +10,7 @@ Forward differences along each requested axis are concatenated:
 has ``(shape[d]-1) * prod(shape[других])`` entries. The adjoint is the
 negative divergence (scatter-add of differences). Everything is expressed
 with static slicing/padding, so XLA fuses it into surrounding elementwise
-work — no Pallas needed for this op.
+work.
 """
 
 from __future__ import annotations

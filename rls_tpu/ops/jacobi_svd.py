@@ -1,19 +1,16 @@
-"""Batched one-sided Jacobi SVD / SVT — f32-accurate on bf16-matmul TPUs.
+"""Batched one-sided Jacobi SVD / SVT for the nuclear / LLR proxes
+(reference ProxNuclear.jl:26-31, ProxLLR.jl:43-88).
 
-XLA's `jnp.linalg.svd` lowers on the restricted TPU runtime but its
-iterative QR inner products ride the MXU, whose bf16 input rounding caps
-accuracy at ~2e-3 — far off the 1e-4 reference-parity bar for the
-nuclear / LLR proxes (reference ProxNuclear.jl:26-31, ProxLLR.jl:43-88).
+Classic one-sided Jacobi: every rotation is column dot products + axpys —
+elementwise/reduction ops that stay f32 whatever the matmul unit rounds —
+and the ONLY matmul is the final `W Vᵀ` reconstruction, done with the
+hi/lo compensated stacked form (`_precise.mm_both`). The CPU tests hold
+it to CPU f64 LAPACK for the small blocks LLR/nuclear need. Whether it
+beats the device's batched `jnp.linalg.svd` is not measured.
 
-This module runs classic one-sided Jacobi instead: every rotation is
-column dot products + axpys — pure VPU elementwise/reduction ops that
-stay f32 on TPU — and the ONLY matmul is the final `W Vᵀ` reconstruction,
-done with the hi/lo compensated stacked form (`_precise.mm_both`).
-Measured ≲1e-6 vs CPU f64 for the small blocks LLR/nuclear need.
-
-TPU-first design points:
+Design points:
   * fixed sweep count (quadratic convergence; no data-dependent control
-    flow — the restricted runtime has no `lax.while_loop`),
+    flow),
   * round-robin tournament ordering: each step rotates n/2 DISJOINT
     column pairs simultaneously as one batched gather → rotate →
     inverse-gather, so a sweep is n−1 vectorized steps instead of
@@ -88,12 +85,9 @@ def _jacobi_w_v(a, sweeps, unroll: bool | None = None):
     ``unroll=None`` defaults to the `lax.scan` path at EVERY size: a scan
     over the sweeps × (n−1) tournament rounds with the index tables as
     scan inputs — identical math to the Python-unrolled loop, but the
-    round body compiles ONCE instead of sweeps·(n−1) times. The r4 chip
-    jacobi_table measured scan first-call compile ≤1 s at every n with
-    run time equal to unrolled (n=16: 1.0 s vs 184.5 s compile at an
-    identical 4.5 ms run; n=128 unrolled: ~163 s — see docs/tpu.md), so
-    the unrolled variant is strictly an OPT-IN (`unroll=True`) for
-    callers that amortize one compile over very many executions."""
+    round body compiles ONCE instead of sweeps·(n−1) times, so the
+    unrolled variant is strictly an OPT-IN (`unroll=True`) for callers
+    that amortize one compile over very many executions."""
     *batch, m, n = a.shape
     dt = a.dtype
     n_pad = n + (n % 2)

@@ -4,14 +4,14 @@ Reference analog: SparseMatrixCSC system matrices with specialized
 ``rownorm²`` / ``dot_with_matrix_row`` / ``kaczmarz_update!``
 (/root/reference/src/Utils.jl:26-31,96-105, /root/reference/src/Kaczmarz.jl:532-539).
 
-Two TPU-native representations:
+Two representations:
 
 * ``SparseOperator`` — jax.experimental.sparse BCOO; matvecs via BCOO
   matmul, but scalar row access is an O(nnz) masked gather over the whole
   matrix — row-action sweeps cost O(m·nnz).
 * ``PaddedCSROperator`` — row-major padded storage ``vals/cols`` of shape
   (m, k_max): every row padded to the max row population. `row_dot` /
-  `row_axpy` are O(k_max) gathers/scatters — the TPU equivalent of the
+  `row_axpy` are O(k_max) gathers/scatters — the equivalent of the
   reference's CSC fast paths: a Kaczmarz sweep costs O(m·k_max) instead
   of O(m·nnz). Static shapes throughout (XLA-friendly); the padding
   ratio is the only overhead, so it fits row-sparse matrices with

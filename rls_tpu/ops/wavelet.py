@@ -1,6 +1,6 @@
 """Orthogonal discrete wavelet transform operator (sparsifying transform).
 
-TPU-native analog of the ``WaveletOp`` (LinearOperatorCollection /
+JAX analog of the ``WaveletOp`` (LinearOperatorCollection /
 Wavelets.jl) that the reference's documentation nests regularization terms
 around: /root/reference/docs/src/literate/explanations/regularization.jl:50-88
 builds ``TransformedRegularization(L1Regularization(λ), WaveletOp(...))`` to
@@ -9,12 +9,11 @@ operator through the generic ``regTrafo`` seam
 (/root/reference/src/Regularization/TransformedRegularization.jl); this module
 provides the operator so that workflow is available here too.
 
-Design (TPU-first):
+Design:
 * Periodized orthogonal DWT (Haar / Daubechies) on 1-D or 2-D signals. The
   per-axis analysis step ``y[k] = Σ_j f[j] · x[(2k+j) mod n]`` is expressed
   as ``L`` static ``jnp.roll``s + one stride-2 slice — pure gather/elementwise
-  work that XLA fuses; no FFT and no complex intermediates, so it runs on the
-  restricted chip runtime (which lacks both).
+  work that XLA fuses; no FFT and no complex intermediates.
 * Orthogonality makes the adjoint the exact inverse; ``rmv`` is the written
   transpose (zero-upsample + opposite-direction rolls), so ``rmv∘mv ≈ id`` to
   float round-off and the operator is safe as a ``TransformedRegularization``

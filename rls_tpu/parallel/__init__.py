@@ -4,12 +4,6 @@ from .mesh import (
     row_sharded_operator,
     shard_batch,
     solve_batched_sharded,
-    solve_admm_tv_fused_sharded,
-    solve_cgnr_fused_sharded,
-    solve_pdhg_fused_sharded,
-    solve_pgm_dense_fused_sharded,
-    solve_fista_tv_fused_sharded,
-    solve_fused_sharded,
 )
 from .multihost import global_mesh, initialize_multihost, is_multihost
 
@@ -19,12 +13,6 @@ __all__ = [
     "shard_batch",
     "row_sharded_operator",
     "solve_batched_sharded",
-    "solve_fista_tv_fused_sharded",
-    "solve_admm_tv_fused_sharded",
-    "solve_cgnr_fused_sharded",
-    "solve_pdhg_fused_sharded",
-    "solve_pgm_dense_fused_sharded",
-    "solve_fused_sharded",
     "initialize_multihost",
     "is_multihost",
     "global_mesh",

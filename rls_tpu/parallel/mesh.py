@@ -3,7 +3,7 @@ for giant operators.
 
 The reference's only parallelism is threads over per-column states
 (/root/reference/src/MultiThreading.jl:70-78) plus threaded prox kernels.
-The TPU-native equivalents here follow the standard JAX recipe: build a
+The equivalents here follow the standard JAX recipe: build a
 `Mesh`, annotate shardings with `NamedSharding`/`PartitionSpec`, and let
 GSPMD insert the collectives —
 
@@ -13,8 +13,8 @@ GSPMD insert the collectives —
     condition (an all-reduce over one bool per problem).
   * **row axis** ("rows"): a dense A is sharded over rows; ``A.mv`` yields a
     row-sharded y, ``A.rmv``/``normal`` contract over the sharded dimension
-    so XLA inserts a psum — the CG/FISTA dot products ride the ICI, exactly
-    the "shard rows of A, psum partial AᴴAx" north star in BASELINE.json.
+    so XLA inserts a psum of the partial AᴴAx over the device links; the
+    CG/FISTA dot products reduce the same way.
 """
 
 from __future__ import annotations
@@ -75,93 +75,3 @@ def solve_batched_sharded(solver, B, mesh: Mesh, axis: str = "batch", x0=None):
     B = shard_batch(jnp.asarray(B), mesh, axis)
     fn = jax.jit(solve_batched, static_argnames=())
     return fn(solver, B) if x0 is None else fn(solver, B, x0)
-
-
-# jitted shard_map callables, keyed on (solve_fn, id(solver), mesh, axis,
-# interpret). The solver is closed over (its static fields drive host-side
-# kernel validation, so it cannot be a traced argument) and unhashable
-# (array leaves), hence the id key — the cached entry pins the solver
-# object so its id cannot be recycled while the entry lives.
-_FUSED_SHARDED_CACHE: dict = {}
-
-
-def solve_fused_sharded(
-    solve_fn, solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Run a fused whole-solve kernel wrapper (`solve_pgm_tv_fused` /
-    `solve_admm_tv_fused`) with the problem columns of B sharded over
-    `axis` under `shard_map` — problems are embarrassingly parallel, so
-    there are zero collectives and linear scaling over the mesh (the
-    TPU-native replacement for the reference's thread scheduler,
-    /root/reference/src/MultiThreading.jl:70-78).
-
-    The jitted shard_map callable is cached, so repeated calls (timing
-    loops, per-slice batches) skip re-tracing."""
-    from jax.sharding import PartitionSpec
-
-    key = (solve_fn, id(solver), mesh, axis, interpret)
-    entry = _FUSED_SHARDED_CACHE.get(key)
-    if entry is None or entry[0] is not solver:
-        spec = PartitionSpec(None, axis)
-        fn = jax.shard_map(
-            lambda b: solve_fn(solver, b, interpret=interpret),
-            mesh=mesh,
-            in_specs=spec,
-            out_specs=spec,
-            # pallas_call's out_shape carries no varying-mesh-axes info; the
-            # kernel is per-problem pure so VMA checking adds nothing here
-            check_vma=False,
-        )
-        if len(_FUSED_SHARDED_CACHE) > 64:
-            _FUSED_SHARDED_CACHE.clear()
-        entry = (solver, jax.jit(fn))
-        _FUSED_SHARDED_CACHE[key] = entry
-    B = shard_batch(jnp.asarray(B), mesh, axis)
-    return entry[1](B)
-
-
-def solve_fista_tv_fused_sharded(
-    solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Sharded fused FISTA/OptISTA/POGM-TV solve (see solve_fused_sharded)."""
-    from ..kernels import solve_pgm_tv_fused
-
-    return solve_fused_sharded(solve_pgm_tv_fused, solver, B, mesh, axis, interpret)
-
-
-def solve_admm_tv_fused_sharded(
-    solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Sharded fused ADMM-TV solve (see solve_fused_sharded)."""
-    from ..kernels import solve_admm_tv_fused
-
-    return solve_fused_sharded(solve_admm_tv_fused, solver, B, mesh, axis, interpret)
-
-
-def solve_cgnr_fused_sharded(
-    solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Sharded fused whole-solve CGNR (see solve_fused_sharded)."""
-    from ..kernels import solve_cgnr_fused
-
-    return solve_fused_sharded(solve_cgnr_fused, solver, B, mesh, axis, interpret)
-
-
-def solve_pgm_dense_fused_sharded(
-    solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Sharded fused dense PGM solve (see solve_fused_sharded)."""
-    from ..kernels import solve_pgm_dense_fused
-
-    return solve_fused_sharded(
-        solve_pgm_dense_fused, solver, B, mesh, axis, interpret
-    )
-
-
-def solve_pdhg_fused_sharded(
-    solver, B, mesh: Mesh, axis: str = "batch", interpret=None
-):
-    """Sharded fused whole-solve PDHG (see solve_fused_sharded)."""
-    from ..kernels import solve_pdhg_fused
-
-    return solve_fused_sharded(solve_pdhg_fused, solver, B, mesh, axis, interpret)

@@ -1,18 +1,19 @@
 """Multi-host initialization helpers.
 
 The reference has no distributed backend at all (SURVEY.md §2.6/§5.8 — its
-only parallelism is threads). The TPU-native scaling story is:
+only parallelism is threads). The scaling story here is:
 
   1. `initialize_multihost()` — `jax.distributed.initialize` on every host
-     of a pod slice (coordinator discovery is automatic on TPU VMs);
+     (coordinator address, process count and id given explicitly, or
+     auto-detected where the cluster environment provides them);
   2. build a global mesh over all devices (`make_mesh`);
-  3. shard the problem batch ("batch" axis, DCN-friendly: no cross-problem
+  3. shard the problem batch ("batch" axis: no cross-problem
      communication except the loop-condition all-reduce) and/or operator
-     rows ("rows" axis, ICI: psum of AᴴAx partials and CG dot products);
+     rows ("rows" axis: psum of AᴴAx partials and CG dot products);
   4. run the same jitted solve — GSPMD inserts the collectives.
 
-Single-process multi-device (one host, N chips) needs no initialization;
-these helpers are no-ops there.
+Single-process multi-device (one host, N devices) needs no
+initialization; these helpers are no-ops there.
 """
 
 from __future__ import annotations
@@ -30,10 +31,10 @@ def initialize_multihost(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize the JAX distributed runtime (no-op if already running or
-    in an explicitly single-process context). On Cloud TPU VMs all
-    arguments are auto-detected. Real initialization failures (bad
+    in an explicitly single-process context). Real initialization
+    failures (bad
     coordinator, rendezvous timeout) PROPAGATE — swallowing them would
-    silently degrade a pod job to one process."""
+    silently degrade a multi-host job to one process."""
     if jax.distributed.is_initialized():
         return
     if num_processes == 1:
@@ -43,8 +44,7 @@ def initialize_multihost(
         and num_processes is None
         and process_id is None
     ):
-        # all-None: rely on jax's cluster auto-detection (TPU pod metadata,
-        # SLURM, …). Failure here means "no cluster environment" — the
+        # all-None: rely on jax's cluster auto-detection (SLURM, …). Failure here means "no cluster environment" — the
         # documented single-process no-op — so it alone may be swallowed.
         try:
             jax.distributed.initialize()
@@ -53,7 +53,7 @@ def initialize_multihost(
         return
     # explicit configuration: a failure is a real error (bad coordinator,
     # rendezvous timeout) and must PROPAGATE — swallowing it would silently
-    # degrade a pod job to one process
+    # degrade a multi-host job to one process
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

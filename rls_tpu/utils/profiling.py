@@ -1,7 +1,7 @@
 """Profiling / tracing helpers.
 
 The reference has no built-in profiler (SURVEY.md §5.1 — observability is
-callbacks + external BenchmarkTools). TPU-native observability:
+callbacks + external BenchmarkTools). Observability here:
 
   * `trace(logdir)` — context manager around `jax.profiler` emitting an XLA
     trace viewable in TensorBoard/Perfetto.

@@ -1,8 +1,7 @@
 """Batched one-sided Jacobi SVD/SVT (ops/jacobi_svd.py) vs f64 LAPACK.
 
-The Jacobi path exists because XLA's SVD rides bf16 matmuls on the target
-TPU (~2e-3 error); its rotations are VPU-only so it must hold ~1e-5
-everywhere the nuclear / LLR proxes use it (reference ProxNuclear.jl:26-31,
+Its rotations use no matmul unit, so it must hold ~1e-5 everywhere the
+nuclear / LLR proxes use it (reference ProxNuclear.jl:26-31,
 ProxLLR.jl:43-88)."""
 
 import jax
@@ -58,8 +57,8 @@ def test_nuclear_prox_jacobi_matches_f64(rng):
     n = 24
     x = jnp.asarray(rng.normal(size=(n * n,)), jnp.float32)
     r_j = rt.NuclearRegularization(0.05, svt_shape=(n, n), svd_method="jacobi")
-    # ground truth from f64 LAPACK, not the XLA path — on bf16-matmul TPUs
-    # XLA's SVD is the INACCURATE side (~2e-3)
+    # ground truth from f64 LAPACK, not the XLA path, whose inner products
+    # may run at reduced matmul precision on an accelerator
     a = np.asarray(r_j.prox(x))
     b = _svt_ref(np.asarray(x).reshape(n, n), 0.05).reshape(-1)
     assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-4
@@ -76,9 +75,9 @@ def test_llr_prox_jacobi_matches_xla(rng):
     r_j = rt.LLRRegularization(0.05, svd_method="jacobi", **kw)
     r_x = rt.LLRRegularization(0.05, svd_method="xla", **kw)
     a, b = np.asarray(r_j.prox(x)), np.asarray(r_x.prox(x))
-    # 5e-3 bound: on-chip XLA SVD is bf16-limited (~2e-3 per block); on
-    # CPU both are ~1e-5 apart. The 1e-4 Jacobi-vs-f64 bar is covered by
-    # test_svt_jacobi_matches_f64 and the tpu_smoke on-chip gate.
+    # 5e-3 bound: XLA's SVD may run at reduced matmul precision on an
+    # accelerator; on CPU both are ~1e-5 apart. The 1e-4 Jacobi-vs-f64
+    # bar is covered by test_svt_jacobi_matches_f64.
     assert np.linalg.norm(a - b) / np.linalg.norm(b) < 5e-3
 
 

@@ -180,94 +180,6 @@ def test_greedy_with_system_normalization(rng):
     np.testing.assert_allclose(x1, x2, rtol=0, atol=1e-5)
 
 
-def test_kaczmarz_streamed_matches_scan(rng):
-    """The streamed whole-solve Pallas kernel (HBM row blocks, multi-sweep,
-    in-kernel positivity) must reproduce the composed scan path for every
-    supported mode — cyclic, shuffled, randomized (precomputed order),
-    complex split-real, and vector-λ Tikhonov."""
-    import jax
-
-    from rls_tpu.kernels.kaczmarz_pallas import solve_kaczmarz_streamed
-    from rls_tpu.models.solvers import solve_batched_unrolled
-
-    m, n, P = 24, 16, 2
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    B = jnp.asarray(rng.normal(size=(m, P)), jnp.float32)
-
-    def check(solver, B_, tol=1e-5):
-        want = np.asarray(solve_batched_unrolled(solver, B_))
-        got = np.asarray(
-            solve_kaczmarz_streamed(solver, B_, block_rows=8, interpret=True)
-        )
-        err = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
-        assert err < tol, err
-
-    check(rt.Kaczmarz.create(rt.DenseOperator(jnp.asarray(A)),
-                             reg=rt.L2Regularization(1e-3), iterations=3), B)
-    check(rt.Kaczmarz.create(rt.DenseOperator(jnp.asarray(A)),
-                             reg=rt.L2Regularization(1e-3), iterations=3,
-                             shuffle_rows=True), B)
-    check(rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(A)),
-        reg=[rt.L2Regularization(1e-3), rt.PositiveRegularization()],
-        iterations=4, randomized=True, sub_matrix_fraction=0.3,
-        precompute_order=True), B)
-    lam_vec = jnp.asarray(rng.uniform(0.5, 2.0, size=(n,)), jnp.float32)
-    check(rt.Kaczmarz.create(rt.DenseOperator(jnp.asarray(A)),
-                             reg=rt.L2Regularization(lam_vec), iterations=3),
-          B)
-
-
-def test_kaczmarz_streamed_complex(rng):
-    import jax
-
-    from rls_tpu.kernels.kaczmarz_pallas import solve_kaczmarz_streamed
-    from rls_tpu.models.solvers import solve_batched_unrolled
-
-    m, n, P = 24, 16, 2
-    Ac = (rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))).astype(
-        np.complex64
-    )
-    Bc = jnp.asarray(
-        rng.normal(size=(m, P)) + 1j * rng.normal(size=(m, P)), jnp.complex64
-    )
-    for kwargs in (
-        dict(iterations=3),
-        dict(iterations=3, randomized=True, sub_matrix_fraction=0.4,
-             precompute_order=True),
-    ):
-        s = rt.Kaczmarz.create(rt.DenseOperator(jnp.asarray(Ac)),
-                               reg=rt.L2Regularization(1e-3), **kwargs)
-        want = np.asarray(solve_batched_unrolled(s, Bc))
-        got = np.asarray(
-            solve_kaczmarz_streamed(s, Bc, block_rows=8, interpret=True)
-        )
-        err = np.linalg.norm(got - want) / np.linalg.norm(want)
-        assert err < 1e-5, err
-
-
-def test_kaczmarz_streamed_rejects_unsupported(rng):
-    from rls_tpu.kernels.kaczmarz_pallas import check_kaczmarz_streamed
-
-    A = rt.DenseOperator(jnp.asarray(rng.normal(size=(12, 8)), jnp.float32))
-    # randomized without a precomputed order
-    s = rt.Kaczmarz.create(A, reg=rt.L2Regularization(1e-3), iterations=2,
-                           randomized=True)
-    with pytest.raises(ValueError, match="precomputed"):
-        check_kaczmarz_streamed(s)
-    # greedy
-    s = rt.Kaczmarz.create(A, reg=rt.L2Regularization(1e-3), iterations=2,
-                           greedy_randomized=True)
-    with pytest.raises(ValueError, match="greedy"):
-        check_kaczmarz_streamed(s)
-    # extra parameterized term
-    s = rt.Kaczmarz.create(
-        A, reg=[rt.L2Regularization(1e-3), rt.L1Regularization(1e-3)],
-        iterations=2)
-    with pytest.raises(ValueError, match="Positive/Real"):
-        check_kaczmarz_streamed(s)
-
-
 def test_kaczmarz_precomputed_order_scan_path(rng):
     """precompute_order=True must lower without jax.random.choice in the
     loop and produce a deterministic, convergent randomized solve."""
@@ -285,130 +197,6 @@ def test_kaczmarz_precomputed_order_scan_path(rng):
     x2 = np.asarray(solve_unrolled(s, b))
     np.testing.assert_array_equal(x1, x2)
     assert np.linalg.norm(x1 - xt) / np.linalg.norm(xt) < 0.05
-
-
-def test_kaczmarz_streamed_real_A_complex_b(rng):
-    """Real A with complex b decouples into two real problems (the scan
-    path's semantics); the streamed wrapper must recombine, not silently
-    drop the imaginary part."""
-    from rls_tpu.kernels.kaczmarz_pallas import solve_kaczmarz_streamed
-    from rls_tpu.models.solvers import solve_batched_unrolled
-
-    m, n, P = 24, 16, 2
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    Bc = jnp.asarray(
-        rng.normal(size=(m, P)) + 1j * rng.normal(size=(m, P)), jnp.complex64
-    )
-    s = rt.Kaczmarz.create(rt.DenseOperator(jnp.asarray(A)),
-                           reg=rt.L2Regularization(1e-3), iterations=3)
-    want = np.asarray(solve_batched_unrolled(s, Bc))
-    got = np.asarray(
-        solve_kaczmarz_streamed(s, Bc, block_rows=8, interpret=True)
-    )
-    assert got.dtype == np.complex64
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
-
-    # with a projection term the decoupling is invalid -> explicit error
-    s2 = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(A)),
-        reg=[rt.L2Regularization(1e-3), rt.PositiveRegularization()],
-        iterations=3)
-    with pytest.raises(ValueError, match="decouple"):
-        solve_kaczmarz_streamed(s2, Bc, block_rows=8, interpret=True)
-
-
-def test_kaczmarz_streamed_vmem_gate(rng):
-    """Very tall systems whose u/vl/denom tiles exceed the VMEM budget are
-    rejected by the CHECK (so the auto dispatcher falls back to the
-    composed path instead of a Mosaic compile-time OOM)."""
-    from rls_tpu.kernels.kaczmarz_pallas import check_kaczmarz_streamed
-
-    m = 2_000_000  # 3 * m * 4B ≈ 24 MiB of per-problem tiles
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(np.zeros((8, 4), np.float32))),
-        reg=rt.L2Regularization(1e-3), iterations=2)
-    big = jnp.zeros((m, 4), jnp.float32)  # lazy zeros: no real allocation
-    from rls_tpu._pytree import replace as _replace
-
-    s_big = _replace(s, A=rt.DenseOperator(big))
-    with pytest.raises(ValueError, match="VMEM"):
-        check_kaczmarz_streamed(s_big)
-
-
-def test_kaczmarz_streamed_smem_table_gate(rng):
-    """Sweep chunking bounds the PER-CALL SMEM table, so only a single
-    sweep whose index row alone exceeds the 1 MiB scalar-memory budget
-    must be rejected by the check; a large sweep COUNT is fine (it
-    chunks)."""
-    from rls_tpu.kernels.kaczmarz_pallas import check_kaczmarz_streamed
-    from rls_tpu._pytree import replace as _replace
-
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(rng.normal(size=(64, 16)), jnp.float32)),
-        reg=rt.L2Regularization(1e-3), iterations=2, randomized=True,
-        sub_matrix_fraction=0.5, precompute_order=True)
-    # many sweeps, small rows-per-sweep: chunking handles it — accepted
-    # (pre-chunking this 600x600 1.44 MB table was rejected)
-    check_kaczmarz_streamed(
-        _replace(s, precomputed_order=jnp.zeros((600, 600), jnp.int32))
-    )
-    # ONE sweep visiting 300k rows: 1.2 MB SMEM row — rejected
-    s_big = _replace(s, precomputed_order=jnp.zeros((2, 300_000), jnp.int32))
-    with pytest.raises(ValueError, match="SMEM"):
-        check_kaczmarz_streamed(s_big)
-
-
-def test_kaczmarz_streamed_hbm_gather_gate(rng):
-    """Sweep chunking bounds the transient HBM gather per chunk, so only
-    a SINGLE sweep whose gathered rows exceed the chunk budget must be
-    rejected; many sweeps of modest gathers are fine (they chunk)."""
-    from rls_tpu.kernels.kaczmarz_pallas import check_kaczmarz_streamed
-    from rls_tpu._pytree import replace as _replace
-
-    n = 65536  # wide rows: 256 KiB each
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(rng.normal(size=(64, 16)), jnp.float32)),
-        reg=rt.L2Regularization(1e-3), iterations=2, randomized=True,
-        sub_matrix_fraction=0.5, precompute_order=True)
-    wide = jnp.zeros((128, n), jnp.float32)
-    # 100 sweeps x 100 rows x 256 KiB = 2.4 GiB total, but only ~25 MiB
-    # per sweep — accepted now that the gather is chunked
-    check_kaczmarz_streamed(_replace(
-        s, A=rt.DenseOperator(wide),
-        precomputed_order=jnp.zeros((100, 100), jnp.int32)))
-    # ONE sweep gathering 1200 x 256 KiB = 300 MiB > the 256 MiB chunk
-    s_big = _replace(s, A=rt.DenseOperator(wide),
-                     precomputed_order=jnp.zeros((2, 1200), jnp.int32))
-    with pytest.raises(ValueError, match="HBM"):
-        check_kaczmarz_streamed(s_big)
-
-
-def test_kaczmarz_streamed_chunked_matches_single_call(rng):
-    """Forcing tiny sweep chunks (the HBM-bounded randomized driver) must
-    reproduce the single-call kernel and the composed scan path exactly,
-    including with the between-sweep positivity projection and a
-    non-dividing chunk size (padded no-op sweeps)."""
-    from rls_tpu.kernels.kaczmarz_pallas import solve_kaczmarz_streamed
-    from rls_tpu.models.solvers import solve_batched_unrolled
-
-    m, n, P = 24, 16, 2
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    B = jnp.asarray(rng.normal(size=(m, P)), jnp.float32)
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(A)),
-        reg=[rt.L2Regularization(1e-3), rt.PositiveRegularization()],
-        iterations=5, randomized=True, sub_matrix_fraction=0.4,
-        precompute_order=True)
-    want = np.asarray(solve_batched_unrolled(s, B))
-    one = np.asarray(
-        solve_kaczmarz_streamed(s, B, block_rows=8, interpret=True)
-    )
-    for cs in (1, 2, 3):  # cs=2,3 do not divide 5 — exercises sweep pads
-        got = np.asarray(solve_kaczmarz_streamed(
-            s, B, block_rows=8, interpret=True, chunk_sweeps=cs))
-        np.testing.assert_allclose(got, one, rtol=0, atol=1e-6)
-    err = np.linalg.norm(one - want) / max(np.linalg.norm(want), 1e-30)
-    assert err < 1e-5, err
 
 
 def test_padded_csr_matches_dense_ops(rng):
@@ -462,144 +250,3 @@ def test_kaczmarz_padded_csr_matches_dense(rng):
         sub_matrix_fraction=0.25, precompute_order=True, **kw)
     np.testing.assert_allclose(np.asarray(rt.solve(s_cr, b)),
                                np.asarray(rt.solve(s_dr, b)), atol=1e-5)
-
-
-def test_kaczmarz_greedy_kernel_forced_rows_match_math(rng):
-    """With a pinned row sequence, the greedy kernel's update pipeline
-    (α, x-axpy, dual bump, r −= r[row]·greedy_B[:,row], between-sweep
-    refresh) must match the composed greedy math exactly
-    (reference Kaczmarz.jl:283-317)."""
-    from rls_tpu.kernels.kaczmarz_greedy import solve_kaczmarz_greedy
-
-    m, n, S, T = 40, 12, 6, 3
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    xt = rng.normal(size=(n,)).astype(np.float32)
-    b = A @ xt
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(A)), reg=rt.L2Regularization(1e-4),
-        iterations=T, greedy_randomized=True, sub_matrix_fraction=S / m,
-    )
-    assert s.sub_matrix_size == S
-    forced = rng.integers(0, m, size=(T, S)).astype(np.int32)
-    got = np.asarray(
-        solve_kaczmarz_greedy(s, jnp.asarray(b)[:, None],
-                              forced_rows=jnp.asarray(forced))
-    )[:, 0]
-
-    # composed math with the same pinned rows
-    lam = 1e-4
-    denom = 1.0 / ((A**2).sum(1) + lam)
-    eps_w = np.sqrt(lam)
-    B = A @ A.T + lam * np.eye(m, dtype=np.float32)
-    gB = B * denom[None, :]
-    x = np.zeros(n, np.float32)
-    vl = np.zeros(m, np.float32)
-    r = b.copy()
-    for t in range(T):
-        for j in range(S):
-            i = forced[t, j]
-            al = denom[i] * r[i]
-            x = x + al * A[i]
-            vl[i] += al * eps_w
-            r = r - r[i] * gB[:, i]
-        r = b - eps_w * vl - A @ x
-    np.testing.assert_allclose(got, x, rtol=0, atol=2e-5)
-
-
-def test_kaczmarz_greedy_kernel_converges(rng):
-    """Sampling mode: the kernel's Gumbel-max greedy selection must solve
-    a consistent system to the same accuracy class as the composed scan
-    path (different random stream, same per-step distribution)."""
-    from rls_tpu.kernels.kaczmarz_greedy import solve_kaczmarz_greedy
-
-    m, n = 60, 16
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    xt = rng.normal(size=(n,)).astype(np.float32)
-    b = jnp.asarray(A @ xt)
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(A)), reg=rt.L2Regularization(1e-6),
-        iterations=12, greedy_randomized=True, sub_matrix_fraction=0.25,
-    )
-    x_k = np.asarray(solve_kaczmarz_greedy(s, b[:, None]))[:, 0]
-    x_s = np.asarray(rt.solve(s, b))
-    err_k = np.linalg.norm(x_k - xt) / np.linalg.norm(xt)
-    err_s = np.linalg.norm(x_s - xt) / np.linalg.norm(xt)
-    assert err_k < max(3 * err_s, 0.05), (err_k, err_s)
-
-
-def test_kaczmarz_greedy_kernel_rejects_unsupported(rng):
-    from rls_tpu.kernels.kaczmarz_greedy import check_kaczmarz_greedy
-
-    s = rt.Kaczmarz.create(
-        rt.DenseOperator(jnp.asarray(rng.normal(size=(8, 4)), jnp.float32)),
-        reg=rt.L2Regularization(1e-4), iterations=2,
-    )
-    with pytest.raises(ValueError, match="greedy"):
-        check_kaczmarz_greedy(s)
-
-
-def test_kaczmarz_streamed_padded_csr_matches_dense(rng):
-    """PaddedCSROperator rides the streamed fast path: the visited rows
-    are densified per chunk (scatter-add), so sparse storage stays
-    O(nnz) while the kernel sees identical row blocks — results must
-    equal the dense-operator streamed solve bit-for-bit."""
-    from rls_tpu.kernels.kaczmarz_pallas import (
-        check_kaczmarz_streamed,
-        solve_kaczmarz_streamed,
-    )
-    from rls_tpu.ops.sparse import PaddedCSROperator
-
-    m, n, P = 24, 16, 2
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    A[rng.uniform(size=A.shape) < 0.6] = 0.0
-    A[:, 0] = rng.normal(size=m)  # genuine col-0 values vs pad collisions
-    B = jnp.asarray(rng.normal(size=(m, P)), jnp.float32)
-    for kwargs in (
-        dict(iterations=3),
-        dict(iterations=5, randomized=True, sub_matrix_fraction=0.4,
-             precompute_order=True),
-    ):
-        s_d = rt.Kaczmarz.create(
-            rt.DenseOperator(jnp.asarray(A)),
-            reg=[rt.L2Regularization(1e-3), rt.PositiveRegularization()],
-            **kwargs)
-        s_c = rt.Kaczmarz.create(
-            PaddedCSROperator.from_dense(A),
-            reg=[rt.L2Regularization(1e-3), rt.PositiveRegularization()],
-            **kwargs)
-        check_kaczmarz_streamed(s_c)  # CSR accepted by the dispatcher
-        want = np.asarray(
-            solve_kaczmarz_streamed(s_d, B, block_rows=8, interpret=True))
-        got = np.asarray(
-            solve_kaczmarz_streamed(s_c, B, block_rows=8, interpret=True))
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-        if kwargs.get("randomized"):
-            got_c = np.asarray(solve_kaczmarz_streamed(
-                s_c, B, block_rows=8, interpret=True, chunk_sweeps=2))
-            np.testing.assert_allclose(got_c, want, rtol=0, atol=1e-6)
-
-
-def test_kaczmarz_streamed_padded_csr_complex(rng):
-    """Complex padded-CSR systems take the split-real streamed path with
-    per-chunk densified rows (regression: the complex reassembly read the
-    dense operator's dtype, which a CSR operator doesn't have)."""
-    from rls_tpu.kernels.kaczmarz_pallas import solve_kaczmarz_streamed
-    from rls_tpu.models.solvers import solve_batched_unrolled
-    from rls_tpu.ops.sparse import PaddedCSROperator
-
-    m, n, P = 24, 16, 2
-    A = (rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))).astype(
-        np.complex64
-    )
-    A[rng.uniform(size=A.shape) < 0.5] = 0.0
-    Bc = jnp.asarray(
-        rng.normal(size=(m, P)) + 1j * rng.normal(size=(m, P)), jnp.complex64
-    )
-    s = rt.Kaczmarz.create(
-        PaddedCSROperator.from_dense(A), reg=rt.L2Regularization(1e-3),
-        iterations=3)
-    want = np.asarray(solve_batched_unrolled(s, Bc))
-    got = np.asarray(
-        solve_kaczmarz_streamed(s, Bc, block_rows=8, interpret=True))
-    assert got.dtype == np.complex64
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5

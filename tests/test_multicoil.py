@@ -1,16 +1,13 @@
-"""BASELINE config #4: SplitBregman with multiple regularizers (L1 + TV)
+"""SplitBregman with multiple regularizers (L1 + TV)
 on a multi-coil MRI-style reconstruction, batched slices.
 
 Multi-coil forward model: A = [S·F·C₁; S·F·C₂; ...] — coil sensitivities as
 WeightingOperators composed with a subsampled FFT, vertically stacked.
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import rls_tpu as rt
 from rls_tpu import solve, solve_batched
@@ -82,13 +79,9 @@ def test_multicoil_batched_slices(rng):
         assert err < 0.15, f"slice {k}: {err}"
 
 
-@pytest.mark.skipif(
-    os.environ.get("RLS_TPU_TEST_PLATFORM", "cpu") != "cpu",
-    reason="f64 transfers are unsupported on the restricted TPU runtime",
-)
 def test_x64_parity_gate(rng):
-    """Residual-match gate at 1e-4 needs f64 on CPU (BASELINE.md):
-    CGNR in x64 must match the analytic Tikhonov solution to 1e-6."""
+    """The f64 parity references need x64: CGNR in x64 must match the
+    analytic Tikhonov solution to 1e-6."""
     with jax.enable_x64():
         A = jnp.asarray(rng.normal(size=(24, 12)), jnp.float64)
         xt = jnp.asarray(rng.normal(size=(12,)), jnp.float64)

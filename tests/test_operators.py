@@ -192,7 +192,7 @@ def test_power_iterations_subdominant_start():
 
 
 def test_subsampled_dft_real_matches_complex_fft(rng):
-    """SubsampledDFT2RealOperator (real split re/im MXU form) must agree
+    """SubsampledDFT2RealOperator (real split re/im matmul form) must agree
     with SubsampledFFTOperator for real images: same normal op, adjoint
     consistency, and matching measurements."""
     h = w = 16
@@ -207,8 +207,8 @@ def test_subsampled_dft_real_matches_complex_fft(rng):
     yr = np.asarray(op_r.mv(x))
     cr = yr[:n][np.asarray(idx)]
     ci = yr[n:][np.asarray(idx)]
-    # 5e-5: the compensated stacked matmul (the exact on-chip program, now
-    # also exercised on CPU) differs from the complex FFT at the f32 floor
+    # 5e-5: the compensated stacked matmul (the same program on every
+    # backend) differs from the complex FFT at the f32 floor
     np.testing.assert_allclose(cr, yc.real, atol=5e-5)
     np.testing.assert_allclose(ci, yc.imag, atol=5e-5)
 

@@ -165,7 +165,7 @@ def test_pnp_trained_cnn_denoiser_end_to_end(rng):
     residual net, optax-trained on synthetic phantoms) must beat the
     unregularized recon on a noisy deblurring problem — the end-to-end
     learned-prior path of the reference how-to
-    (docs/src/literate/howto/plug-and-play.jl), f32/chip-runnable."""
+    (docs/src/literate/howto/plug-and-play.jl), f32 throughout."""
     from rls_tpu.models.denoisers import make_pnp_model, train_denoiser
     from rls_tpu.models.regularization import IdentityTransform
 

@@ -1,7 +1,8 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh:
-batch-sharded multi-RHS solve matches unsharded results, and a row-sharded
-operator produces correct (psum-reduced) normal products. This is the
-multi-chip seam described in SURVEY.md §2.6 / §5.8."""
+batch-sharded multi-RHS solves match unsharded results and the float64
+numpy references, and a row-sharded operator produces correct
+(psum-reduced) normal products. This is the multi-device seam described in
+SURVEY.md §2.6 / §5.8."""
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +11,7 @@ import pytest
 
 import rls_tpu as rt
 from rls_tpu import solve_batched
+from tools import np_reference as ref
 from rls_tpu.parallel import (
     make_mesh,
     row_sharded_operator,
@@ -17,9 +19,11 @@ from rls_tpu.parallel import (
     solve_batched_sharded,
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs a multi-device mesh"
-)
+
+@pytest.fixture(autouse=True)
+def _multi_device():
+    if len(jax.devices()) < 2:
+        pytest.skip("needs a multi-device mesh")
 
 
 def test_batch_sharded_solve_matches(rng):
@@ -58,63 +62,8 @@ def test_row_sharded_cgnr(rng):
     assert err < 0.02
 
 
-def test_fused_fista_tv_sharded(rng):
-    """Fused Pallas FISTA-TV under shard_map over the batch axis must match
-    the unsharded fused solve (interpret mode on the virtual CPU mesh)."""
-    import jax
-
-    from rls_tpu.kernels import solve_fista_tv_fused
-    from rls_tpu.parallel import make_mesh, solve_fista_tv_fused_sharded
-
-    n, ndev = 16, len(jax.devices())
-    batch = 2 * ndev
-    g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
-    kern = np.outer(g, g)
-    kern /= kern.sum()
-    op = rt.SeparableConvOperator.from_kernel(kern, im_shape=(n, n))
-    reg = rt.TVRegularization(1e-3, shape=(n, n), iterations_tv=3, unroll=True)
-    solver = rt.FISTA.create(
-        op, reg=reg, iterations=4, rho=0.9, rel_tol=0.0, track_residual=False
-    )
-    X = jnp.asarray(rng.normal(size=(batch, n * n)), jnp.float32)
-    B = jax.vmap(op.mv)(X).T
-    mesh = make_mesh(axis_names=("batch",))
-    got = np.asarray(
-        solve_fista_tv_fused_sharded(solver, B, mesh, interpret=True)
-    )
-    want = np.asarray(solve_fista_tv_fused(solver, B, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-
-
-def test_fused_admm_tv_sharded(rng):
-    """Sharded fused ADMM-TV must match the unsharded fused solve."""
-    import jax
-
-    from rls_tpu.kernels import solve_admm_tv_fused
-    from rls_tpu.parallel import make_mesh, solve_admm_tv_fused_sharded
-
-    n, ndev = 16, len(jax.devices())
-    batch = 2 * ndev
-    g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
-    kern = np.outer(g, g)
-    kern /= kern.sum()
-    op = rt.SeparableConvOperator.from_kernel(kern, im_shape=(n, n))
-    reg = rt.TVRegularization(1e-3, shape=(n, n), iterations_tv=3, unroll=True)
-    solver = rt.ADMM.create(
-        op, reg=reg, iterations=3, iterations_cg=3, unroll_cg=True, rho=0.1
-    )
-    X = jnp.asarray(rng.normal(size=(batch, n * n)), jnp.float32)
-    B = jax.vmap(op.mv)(X).T
-    mesh = make_mesh(axis_names=("batch",))
-    got = np.asarray(
-        solve_admm_tv_fused_sharded(solver, B, mesh, interpret=True)
-    )
-    want = np.asarray(solve_admm_tv_fused(solver, B, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
-
-
 def test_batch_sharded_hlo_has_no_allgather(rng):
-    """Collective audit (VERDICT r2 item 7): the batch-sharded solve is
+    """Collective audit: the batch-sharded solve is
     embarrassingly parallel over problems — the compiled SPMD program must
     contain NO all-gather (only the loop-condition all-reduce over the
     per-problem active flags). An all-gather would mean GSPMD decided to
@@ -150,7 +99,7 @@ def test_row_sharded_hlo_psum_no_allgather(rng):
 
 
 def test_2d_mesh_batch_rows_cgnr(rng):
-    """2-D (batch × rows) mesh (VERDICT r3 item 5): K problems share a
+    """2-D (batch × rows) mesh: K problems share a
     tall row-sharded dense A; problems shard over "batch". The batched
     CGNR solve must (a) keep its psum on the rows axis with NO
     all-gather, and (b) match the unsharded solve."""
@@ -189,68 +138,78 @@ def test_2d_mesh_batch_rows_cgnr(rng):
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-5)
 
 
-def test_fused_cgnr_sharded(rng):
-    """Sharded fused whole-solve CGNR must match the unsharded kernel."""
-    import jax
+def _sep_taps(k=5):
+    g = np.exp(-((np.arange(k) - k // 2) ** 2) / 2.0)
+    return g / g.sum()
 
-    from rls_tpu.kernels import solve_cgnr_fused
-    from rls_tpu.parallel import make_mesh, solve_cgnr_fused_sharded
 
-    ndev = len(jax.devices())
-    m, n, batch = 24, 16, 2 * ndev
-    A = jnp.asarray(rng.normal(size=(m, n)) / np.sqrt(n), jnp.float32)
-    solver = rt.CGNR.create(
-        rt.DenseOperator(A), reg=rt.L2Regularization(1e-3), iterations=10
-    )
-    X = jnp.asarray(rng.normal(size=(n, batch)), jnp.float32)
-    B = A @ X
+def _deblur_problem(rng, n, batch):
+    taps = _sep_taps()
+    op = rt.SeparableConvOperator.from_taps(taps, taps, im_shape=(n, n))
+    A64 = ref.SepConv(taps, taps, (n, n))
+    X = rng.normal(size=(n * n, batch))
+    B = np.stack([A64.mv(X[:, j]) for j in range(batch)], axis=1)
+    return op, A64, B.astype(np.float32)
+
+
+def _sharded_fista_tv(rng, batch):
+    n = 16
+    op, A64, B = _deblur_problem(rng, n, batch)
+    s = rt.FISTA.create(op, reg=rt.TVRegularization(1e-3, shape=(n, n),
+                                                    iterations_tv=3, unroll=True),
+                        iterations=4, rho=0.9, rel_tol=0.0, track_residual=False)
+    tv = ref.tv_prox((n, n), None, 3)
+    return s, B, lambda b: ref.fista(A64, b, tv, 1e-3, 0.9, 4, track_residual=False)
+
+
+def _sharded_admm_tv(rng, batch):
+    n = 16
+    op, A64, B = _deblur_problem(rng, n, batch)
+    s = rt.ADMM.create(op, reg=rt.TVRegularization(1e-3, shape=(n, n),
+                                                   iterations_tv=3, unroll=True),
+                       iterations=3, iterations_cg=3, unroll_cg=True, rho=0.1)
+    tv = ref.tv_prox((n, n), None, 3)
+    return s, B, lambda b: ref.admm(A64, b, [tv], [1e-3], [0.1], 3, 3)
+
+
+def _sharded_cgnr(rng, batch):
+    m, n = 24, 16
+    A = (rng.normal(size=(m, n)) / np.sqrt(n)).astype(np.float32)
+    s = rt.CGNR.create(rt.DenseOperator(jnp.asarray(A)),
+                       reg=rt.L2Regularization(1e-3), iterations=10)
+    B = (A @ rng.normal(size=(n, batch))).astype(np.float32)
+    return s, B, lambda b: ref.cgnr(ref.Dense(A), b, 1e-3, 10, n)
+
+
+def _sharded_pdhg(rng, batch):
+    n = 16
+    op, A64, B = _deblur_problem(rng, n, batch)
+    s = rt.PDHG.create(op, reg=rt.TVRegularization(1e-3, shape=(n, n)), iterations=5)
+    tau = float(s.tau)
+    return s, B, lambda b: ref.pdhg(A64, b, ref.Grad8((n, n)), ref.tv_conj_8dir((n, n)),
+                                    1e-3, 1.0, tau, 5)
+
+
+def _sharded_pgm_dense(rng, batch):
+    m, n = 24, 48
+    A = (rng.normal(size=(m, n)) / np.sqrt(m)).astype(np.float32)
+    s = rt.FISTA.create(rt.DenseOperator(jnp.asarray(A)), reg=rt.L1Regularization(1e-3),
+                        iterations=8, rho=0.1, track_residual=False)
+    B = rng.normal(size=(m, batch)).astype(np.float32)
+    return s, B, lambda b: ref.fista(ref.Dense(A), b, ref.soft_threshold, 1e-3, 0.1, 8,
+                                     track_residual=False)
+
+
+@pytest.mark.parametrize("build", [_sharded_fista_tv, _sharded_admm_tv, _sharded_cgnr,
+                                   _sharded_pdhg, _sharded_pgm_dense],
+                         ids=lambda f: f.__name__[len("_sharded_"):])
+def test_composed_sharded_matches_unsharded(rng, build):
+    """`solve_batched_sharded` over the batch axis must match the
+    unsharded composed solve and the float64 numpy reference."""
+    s, B, reference = build(rng, 2 * len(jax.devices()))
     mesh = make_mesh(axis_names=("batch",))
-    got = np.asarray(solve_cgnr_fused_sharded(solver, B, mesh, interpret=True))
-    want = np.asarray(solve_cgnr_fused(solver, B, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-
-
-def test_fused_pdhg_sharded(rng):
-    """Sharded fused PDHG must match the unsharded kernel."""
-    import jax
-
-    from rls_tpu.kernels import solve_pdhg_fused
-    from rls_tpu.parallel import make_mesh, solve_pdhg_fused_sharded
-
-    n, ndev = 16, len(jax.devices())
-    batch = 2 * ndev
-    g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
-    g /= g.sum()
-    op = rt.SeparableConvOperator.from_taps(g, g, im_shape=(n, n))
-    solver = rt.PDHG.create(
-        op, reg=rt.TVRegularization(1e-3, shape=(n, n)), iterations=5
-    )
-    X = jnp.asarray(rng.normal(size=(batch, n * n)), jnp.float32)
-    B = jax.vmap(op.mv)(X).T
-    mesh = make_mesh(axis_names=("batch",))
-    got = np.asarray(solve_pdhg_fused_sharded(solver, B, mesh, interpret=True))
-    want = np.asarray(solve_pdhg_fused(solver, B, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-
-
-def test_fused_pgm_dense_sharded(rng):
-    """Sharded fused dense FISTA must match the unsharded kernel."""
-    import jax
-
-    from rls_tpu.kernels import solve_pgm_dense_fused
-    from rls_tpu.parallel import make_mesh, solve_pgm_dense_fused_sharded
-
-    ndev = len(jax.devices())
-    m, n, batch = 24, 48, 2 * ndev
-    A = jnp.asarray(rng.normal(size=(m, n)) / np.sqrt(m), jnp.float32)
-    solver = rt.FISTA.create(
-        rt.DenseOperator(A), reg=rt.L1Regularization(1e-3), iterations=8,
-        rho=0.1, track_residual=False,
-    )
-    B = jnp.asarray(rng.normal(size=(m, batch)), jnp.float32)
-    mesh = make_mesh(axis_names=("batch",))
-    got = np.asarray(
-        solve_pgm_dense_fused_sharded(solver, B, mesh, interpret=True)
-    )
-    want = np.asarray(solve_pgm_dense_fused(solver, B, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    got = np.asarray(solve_batched_sharded(s, B, mesh))
+    want = np.asarray(jax.jit(solve_batched)(s, jnp.asarray(B)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    x64 = np.stack([reference(B[:, j].astype(np.float64)) for j in range(2)], axis=1)
+    assert ref.rel_err(got[:, :2], x64) < 1e-4

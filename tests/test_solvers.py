@@ -64,8 +64,8 @@ def test_recover_tiny_system(rng, name, complex_):
 
 
 def test_direct_solvers_jacobi_dispatch(rng):
-    """Real-f32 direct solvers must ride the one-sided Jacobi SVD (the
-    TPU-accurate route, VERDICT r3 item 7) and still match the f64
+    """Real-f32 direct solvers must ride the one-sided Jacobi SVD (its
+    rotations use no matmul unit) and still match the f64
     regularized normal solve; svd_method='lu' keeps the factorization
     path (reference Direct.jl:101-133)."""
     A = rng.normal(size=(48, 32)).astype(np.float32) / 6
@@ -288,7 +288,7 @@ def test_x0_warm_start(rng):
 
 def test_admm_unroll_cg_matches(rng):
     """ADMM with the masked python-unrolled inner CG must match the
-    while-loop CG (control-flow-free mode for restricted TPU runtimes)."""
+    while-loop CG (the control-flow-free mode of the unrolled drivers)."""
     A, xt, b = _tiny_problem(rng)
     common = dict(reg=rt.L1Regularization(1e-4), iterations=30,
                   iterations_cg=8, kwarg_warning=False)
